@@ -11,11 +11,17 @@ non-zero and prints no result line):
 1. the card's name and power limit, from ``nvidia-smi``;
 2. build the CUDA kernels from ``genpose_tpu_torch/csrc`` (``ops/_build.py``);
 3. hold each kernel against its plain PyTorch version, bit for bit, at the
-   nine shapes the serving path gives them (B=64 clouds of 1024 points:
-   FPS 1024->512, 512->256, 256->128; ball query at both radii of each
-   stage), plus ties, an unaligned N, npoint > N and exact-boundary cases;
-   time kernel and plain version with CUDA events;
-4. drive the serving path at the released model's full width
+   shapes the paths give them (B=64 clouds of 1024 points: FPS 1024->512,
+   512->256, 256->128; ball query at both radii of each stage; the fused
+   FPS + ball query at the three stages, also against the separate
+   kernels), plus ties, an unaligned N, npoint > N, empty balls,
+   exact-boundary cases and the JAX fused-kernel test's cases; time each
+   kernel and its plain version with CUDA events;
+4. the fused kernel's path: the three-stage geometry chain of
+   ``tools/bench_fused_geometry.py``, once per arm with the launch counts
+   read around it, then both arms timed (the fused kernel's win or loss)
+   and the fused kernel's device time in one chain profiled;
+5. drive the serving path at the released model's full width
    (``InferencePipeline``: bs=64, K=50, N=1024, light PointNet++, VE SDE,
    Rx_Ry_and_T heads) with seeded random non-zero weights, once with the
    Heun ``ode`` sampler and once with ``ode_adaptive``; check that each run
@@ -23,19 +29,38 @@ non-zero and prints no result line):
    outputs are finite and well formed;
    then split one more request by stage and profile it (device busy share,
    top kernels);
-5. run one small batch through the same pipeline on the card and on the
-   CPU, with the same weights and prior noise, and compare.
+6. run one small batch through the same pipeline on the card and on the
+   CPU, with the same weights and prior noise, and compare;
+7. drive the training path at the released recipe's full width (bs=192,
+   N=1024, 20 DSM draws, Adam lr 1e-3 with warmup 100, clip 1.0, EMA 0.999,
+   the default augmentation) on synthetic batches from a seed:
+   ``train_score`` for SCORE_STEPS steps and its eval epoch, then
+   ``train_energy(ranking=True)`` for ENERGY_STEPS iterations with the
+   trained score agent as teacher (K=5 candidates by ``ode_adaptive``).
+   Checks: finite losses, params unchanged by the first step (lr 0) and
+   changed by the second, BatchNorm statistics moved, EMA shadow apart from
+   the live params, FPS 3 and ball query 6 launches per score step and per
+   energy iteration (one geometry pass shared by the candidates and the
+   energy step).  Prints seconds per step, samples/s, peak memory, a stage
+   split of one score step and the device busy share;
+8. 3 score and 2 energy steps at a small size on the card and on the CPU,
+   same weights, batches and draws: loss trajectories, final state and each
+   parameter's update compared; a control run with zeroed gradients must
+   fail the update check.
 
-The last lines are the card line, one JSON line describing each kernel, and
-``{"ok": true, "device": {...}}``.
+Checkpoints and metrics of phase 7 go under ``build/chip_smoke/`` in the
+checkout.  The last lines are the training numbers, the card line, one JSON
+line describing each kernel, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -48,6 +73,10 @@ HEUN_STEPS = 500  # the config default; the whole run stays far inside its time 
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 CPU_GPU_TOL = 1e-3
+SCORE_STEPS, ENERGY_STEPS = 4, 3  # training steps at full width
+TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL = 1e-4, 1e-4  # training CUDA vs CPU (phase 8)
+TRAIN_UPDATE_RTOL = 0.2  # phase 8: a parameter's update, relative to its norm
+OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"  # checkpoints, logs
 
 
 def card_line() -> str:
@@ -57,17 +86,30 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call over ``reps`` back-to-back calls, after one warm call."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+@contextlib.contextmanager
+def timing_calls(stages, *targets):
+    """Within the block, each call of ``owner.name`` for (owner, name, stage)
+    in ``targets`` is timed on the host clock, with the device synchronised
+    on both sides, and its milliseconds are added to ``stages[stage]``."""
+    saved = [(owner, name, vars(owner).get(name)) for owner, name, _ in targets]
+    for owner, name, stage in targets:
+        def wrapper(*args, _fn=getattr(owner, name), _stage=stage, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stages[_stage] = stages.get(_stage, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+
+        setattr(owner, name, wrapper)  # on an instance, this shadows the method
+    try:
+        yield stages
+    finally:
+        for owner, name, old in saved:
+            if old is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, old)
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -97,16 +139,31 @@ def object_clouds(gen: torch.Generator, n: int, n_points: int, device, grid: flo
     return pts.contiguous()
 
 
+def examined_pairs(xyz, centers, radius, nsample, bq):
+    """(center, point) pairs a ball query that stops at its nsample-th hit
+    examines on this data, and the mean hit count per center."""
+    from genpose_tpu_torch.ops import pointcloud as pc
+
+    d2 = pc._sq_dist(centers[:, :, None, :], xyz[:, None, :, :])
+    cnt = (d2 < pc.radius_sq_f32(radius)).sum(-1)
+    examined = torch.where(cnt >= nsample, bq[..., -1].long() + 1,
+                           torch.full_like(cnt, xyz.shape[1]))
+    return float(examined.sum()), float(cnt.float().mean())
+
+
 def check_kernels(dev):
-    """Phase 3: each kernel against its plain version at the serving shapes."""
+    """Phase 3: each kernel against its plain version at the serving shapes,
+    and the fused kernel against its plain version and the separate kernels."""
     from genpose_tpu_torch.ops import pointcloud as pc
     from genpose_tpu_torch.ops.ball_query_cuda import ball_query_cuda
+    from genpose_tpu_torch.ops.fps_bq_fused_cuda import fps_bq_fused_cuda
     from genpose_tpu_torch.ops.fps_cuda import fps_cuda
+    from genpose_tpu_torch.tools.bench_fused_geometry import cuda_ms
 
     gen = torch.Generator(device=dev).manual_seed(0)
     xyz = object_clouds(gen, B, N_POINTS, dev)
     xyz = xyz - xyz.mean(dim=1, keepdim=True)  # the pipeline zero-centers
-    fps_rows, bq_rows = [], []
+    fps_rows, bq_rows, fused_rows = [], [], []
     err = 0  # max |kernel - plain| over every compared index
     for (n, npoint), radii in zip(FPS_SHAPES, BQ_RADII):
         got, want = fps_cuda(xyz, npoint), pc.farthest_point_sample_ref(xyz, npoint)
@@ -120,6 +177,7 @@ def check_kernels(dev):
         fps_rows.append(row(f"B{B} N{n} npoint{npoint}", ms, plain,
                             B * n * 12 + B * npoint * 4, B * (npoint - 1) * n * 10))
         centers = pc.gather_points(xyz, got)
+        separate, examined_all = [], 0.0
         for radius, nsample in zip(radii, BQ_NSAMPLE):
             got_bq = ball_query_cuda(radius, nsample, xyz, centers)
             want_bq = pc.ball_query_ref(radius, nsample, xyz, centers)
@@ -128,18 +186,33 @@ def check_kernels(dev):
                 raise AssertionError(f"ball query kernel != plain at N={n} M={npoint} "
                                      f"r={radius} S={nsample}")
             err = max(err, int((got_bq - want_bq).abs().max()))
+            separate.append(got_bq)
             ms = cuda_ms(lambda: ball_query_cuda(radius, nsample, xyz, centers), 50)
             plain = cuda_ms(lambda: pc.ball_query_ref(radius, nsample, xyz, centers), 5)
             # the kernel examines points of a center until it has nsample hits:
             # count the (center, point) pairs this data needs, 9 ops each
-            d2 = pc._sq_dist(centers[:, :, None, :], xyz[:, None, :, :])
-            cnt = (d2 < pc.radius_sq_f32(radius)).sum(-1)
-            examined = torch.where(cnt >= nsample, want_bq[..., -1].long() + 1,
-                                   torch.full_like(cnt, n))
+            examined, mean_hits = examined_pairs(xyz, centers, radius, nsample, want_bq)
+            examined_all += examined
             n_bytes = B * n * 12 + B * npoint * 12 + B * npoint * nsample * 4
             bq_rows.append(row(f"B{B} N{n} M{npoint} r{radius} S{nsample}", ms, plain,
-                               n_bytes, float(examined.sum()) * 9,
-                               mean_hits=float(cnt.float().mean())))
+                               n_bytes, examined * 9, mean_hits=mean_hits))
+        # fused: bit for bit against its plain version and the separate kernels
+        got_f = fps_bq_fused_cuda(xyz, npoint, radii, BQ_NSAMPLE)
+        want_f = pc.fps_bq_fused_ref(xyz, npoint, radii, BQ_NSAMPLE)
+        torch.cuda.synchronize()
+        for name, other in (("plain", want_f), ("separate kernels", (got, tuple(separate)))):
+            if not (torch.equal(got_f[0], other[0])
+                    and all(torch.equal(a, b) for a, b in zip(got_f[1], other[1]))):
+                raise AssertionError(f"fused kernel != {name} at N={n} npoint={npoint}")
+        ms = cuda_ms(lambda: fps_bq_fused_cuda(xyz, npoint, radii, BQ_NSAMPLE), 50)
+        plain = cuda_ms(lambda: pc.fps_bq_fused_ref(xyz, npoint, radii, BQ_NSAMPLE), 3)
+        # each input and output once; the FPS rounds' distance rows (one more
+        # for the last center) and one compare per examined (center, point)
+        # pair and radius: the distance is shared
+        n_bytes = B * n * 12 + B * npoint * 4 + B * npoint * sum(BQ_NSAMPLE) * 4
+        n_ops = B * (npoint - 1) * n * 10 + B * n * 9 + examined_all
+        fused_rows.append(row(f"B{B} N{n} npoint{npoint} r{radii} S{BQ_NSAMPLE}", ms, plain,
+                              n_bytes, n_ops))
         xyz = centers
 
     # edge cases: ties, unaligned N, npoint > N, exact boundary, empty balls
@@ -167,15 +240,36 @@ def check_kernels(dev):
         ("bq boundary r=0.5", lambda: ball_query_cuda(0.5, 4, edge, origin),
          lambda: pc.ball_query_ref(0.5, 4, edge, origin)),
     ]
+    rng = np.random.RandomState(11)
+    for b, n, m, radii, nsamples in ((4, 512, 256, (0.02, 0.04), (16, 32)),
+                                     (3, 256, 128, (0.08, 0.16), (16, 32)),
+                                     (2, 100, 64, (0.3,), (8,))):  # the JAX test's cases
+        pts = torch.from_numpy((rng.randn(b, n, 3) * 0.1).astype(np.float32)).to(dev)
+        cases.append((f"fused B{b} N{n} M{m}", lambda p=pts, m=m, r=radii, s=nsamples:
+                      fps_bq_fused_cuda(p, m, r, s),
+                      lambda p=pts, m=m, r=radii, s=nsamples: pc.fps_bq_fused_ref(p, m, r, s)))
+    # npoint > N, and r=0: every ball empty (a center is a point of its cloud)
+    small = odd[:, :64].contiguous()
+    cases += [
+        ("fused npoint > N, empty balls",
+         lambda: fps_bq_fused_cuda(small, 512, (0.05, 1.0, 0.0), (4, 40, 2)),
+         lambda: pc.fps_bq_fused_ref(small, 512, (0.05, 1.0, 0.0), (4, 40, 2))),
+        ("fused boundary r=0.1", lambda: fps_bq_fused_cuda(torch.cat([origin, edge], 1), 3,
+                                                          (0.1, 0.5), (4, 4)),
+         lambda: pc.fps_bq_fused_ref(torch.cat([origin, edge], 1), 3, (0.1, 0.5), (4, 4))),
+    ]
     for name, kern, plain in cases:
         got, want = kern(), plain()
         torch.cuda.synchronize()
+        if isinstance(got, tuple):  # fused: (fps_idx, per-radius tables)
+            got, want = (torch.cat([got[0].flatten(), *(t.flatten() for t in got[1])]),
+                         torch.cat([want[0].flatten(), *(t.flatten() for t in want[1])]))
         if not torch.equal(got, want):
             raise AssertionError(f"kernel != plain: {name}")
         err = max(err, int((got - want).abs().max()))
-    print(f"kernels equal their plain versions at the 9 serving shapes and "
-          f"{len(cases)} edge cases", flush=True)
-    return fps_rows, bq_rows, err
+    print(f"kernels equal their plain versions at the 9 serving shapes, the fused kernel "
+          f"at the 3 stage shapes, and {len(cases)} edge cases", flush=True)
+    return fps_rows, bq_rows, fused_rows, err
 
 
 def make_pipeline(dev, **overrides):
@@ -226,33 +320,16 @@ def where_the_time_goes(pipe, pts: np.ndarray, label: str):
     device synchronised on both sides), then the same request under
     ``torch.profiler``: the device's busy share of the wall time and the
     kernels that take most of it."""
-    stages = {}
-
-    def timed(obj, name, stage):
-        fn = getattr(obj, name)
-
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            stages[stage] = stages.get(stage, 0.0) + (time.perf_counter() - t0) * 1e3
-            return out
-
-        setattr(obj, name, wrapper)  # an instance attribute shadows the method
-
-    timed(pipe.score_agent, "pts_geometry", "geometry (FPS + ball query + grouping)")
-    timed(pipe.score_agent, "sample", "score encoder + sampler")
-    timed(pipe.energy_agent, "get_energy", "energy encoder + head")
-    timed(pipe.score_agent, "aggregate_hypotheses", "quaternion pooling")
-    t0 = time.perf_counter()
-    pipe.predict(pts, generator=torch.Generator(device=pipe.device).manual_seed(1))
-    total = (time.perf_counter() - t0) * 1e3
+    with timing_calls({}, (pipe.score_agent, "pts_geometry",
+                           "geometry (FPS + ball query + grouping)"),
+                      (pipe.score_agent, "sample", "score encoder + sampler"),
+                      (pipe.energy_agent, "get_energy", "energy encoder + head"),
+                      (pipe.score_agent, "aggregate_hypotheses", "quaternion pooling")) as stages:
+        t0 = time.perf_counter()
+        pipe.predict(pts, generator=torch.Generator(device=pipe.device).manual_seed(1))
+        total = (time.perf_counter() - t0) * 1e3
     split = ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
     print(f"stage split {label} (ms): {split}; whole request {total:.3f}", flush=True)
-    for name in ("pts_geometry", "sample", "aggregate_hypotheses"):
-        delattr(pipe.score_agent, name)
-    delattr(pipe.energy_agent, "get_energy")
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -327,6 +404,387 @@ def cpu_gpu_agreement(dev):
     return worst
 
 
+def fused_geometry_path(dev):
+    """Phase 4: the fused kernel's path, the three-stage geometry chain of
+    ``genpose_tpu_torch/tools/bench_fused_geometry.py``, once with each arm
+    and the counts read around it; then both arms timed."""
+    from genpose_tpu_torch.ops import ball_query_cuda, fps_bq_fused_cuda, fps_cuda
+    from genpose_tpu_torch.tools import bench_fused_geometry as bench
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pts = object_clouds(gen, B, N_POINTS, dev)
+    pts = pts - pts.mean(dim=1, keepdim=True)
+    mods = {"fps": fps_cuda, "ball_query": ball_query_cuda, "fps_bq_fused": fps_bq_fused_cuda}
+    outs, launches = {}, {}
+    for use_fused in (True, False):
+        torch.cuda.synchronize()
+        for m in mods.values():
+            m.launches = 0
+        outs[use_fused] = bench.chain(pts, use_fused)
+        torch.cuda.synchronize()
+        launches[use_fused] = {k: m.launches for k, m in mods.items()}
+    want = {True: {"fps": 0, "ball_query": 0, "fps_bq_fused": 3},
+            False: {"fps": 3, "ball_query": 6, "fps_bq_fused": 0}}
+    if launches != want:
+        raise AssertionError(f"geometry chain launches {launches}, expected {want}")
+    for (fi_f, bq_f), (fi_s, bq_s) in zip(outs[True], outs[False]):
+        if not (torch.equal(fi_f, fi_s) and all(torch.equal(a, b) for a, b in zip(bq_f, bq_s))):
+            raise AssertionError("the fused and separate arms of the chain disagree")
+    times = bench.measure(pts, iters=16)
+    # the fused kernel's device time in one chain, by the profiler
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        bench.chain(pts, True)
+        torch.cuda.synchronize()
+    profiled = sum(e.self_device_time_total for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                   and "fps_bq_fused_kernel" in e.key) / 1e3
+    verdict = "win" if times["chain_fused_win_pct"] > 0 else "loss"
+    print(f"fused geometry chain (B={B}, 3 stages): separate {times['chain_separate_ms']:.4f} ms, "
+          f"fused {times['chain_fused_ms']:.4f} ms: a {verdict} of "
+          f"{abs(times['chain_fused_win_pct']):.2f}% for the fused kernel; per stage "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items() if k.startswith("s"))
+          + f"; fused kernel device time {profiled:.4f} ms per chain (profiled); {card_line()}",
+          flush=True)
+    return launches[True]["fps_bq_fused"], times, profiled or None
+
+
+def _raw_batches(rng, n, bs, n_pts):
+    from genpose_tpu_torch.data.synthetic import synthetic_batch
+
+    return [synthetic_batch(rng, bs=bs, n_pts=n_pts, n_model=n_pts) for _ in range(n)]
+
+
+class StepMeter:
+    """Wraps an agent method: host time around each call with the device
+    synchronised on both sides, and the FPS / ball-query launches inside it."""
+
+    def __init__(self, obj, name):
+        from genpose_tpu_torch.ops import ball_query_cuda, fps_cuda
+
+        self.calls, self.obj, self.name = [], obj, name
+        fn = getattr(obj, name)
+
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            f0, b0 = fps_cuda.launches, ball_query_cuda.launches
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.calls.append({"s": time.perf_counter() - t0, "fps": fps_cuda.launches - f0,
+                               "ball_query": ball_query_cuda.launches - b0})
+            return out
+
+        setattr(obj, name, wrapper)  # an instance attribute shadows the method
+
+    def close(self):
+        delattr(self.obj, self.name)
+
+
+def busy_share(fn, label):
+    """fn() once under torch.profiler: device time over host wall time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    if dev_us <= 0:
+        print(f"profiler {label}: no device time recorded; busy share not measured", flush=True)
+        return None
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    print(f"profiler {label}: device busy {dev_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
+          f"= {dev_us / wall_us:.4f}; {sum(e.count for e in kernels)} device kernels and copies; "
+          "top: " + "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                              for e in top), flush=True)
+    return dev_us / wall_us
+
+
+def score_step_split(agent, raw, gen):
+    """One call of ``agent.train_step`` cut into its stages: the functions
+    the step calls are timed for this call (``timing_calls``), and the
+    backward is what the step took beyond them."""
+    from genpose_tpu_torch.data.process import process_batch
+    from genpose_tpu_torch.models import pointnet2
+
+    geo, enc = "geometry (FPS + ball query + grouping)", "encoder forward (train-mode BN)"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = process_batch(raw, agent.cfg.pose_mode, gen, agent.cfg.pts_aug, device=agent.device)
+    torch.cuda.synchronize()
+    prep = (time.perf_counter() - t0) * 1e3
+    with timing_calls({}, (pointnet2, "sa_geometry", geo), (agent, "_encode", enc),
+                      (agent, "_gf_loss", f"head + DSM loss forward ({agent.cfg.repeat_num} draws)"),
+                      (agent.state, "apply_gradients", "clip + Adam + EMA"),
+                      (agent, "train_step", "step")) as stages:
+        agent.train_step(batch, gen)
+    step = stages.pop("step")
+    stages[enc] -= stages[geo]  # _encode's time includes the geometry's
+    stages["backward (the rest of the step)"] = step - sum(stages.values())
+    return {"process_batch + augmentation": prep, **stages}
+
+
+def training_path(dev, card):
+    """Phase 7: the training path at the released recipe's full width
+    (``scripts/train_score.sh``, ``config.py:61-112``): ``train_score`` for
+    SCORE_STEPS steps and its eval epoch, then ``train_energy(ranking=True)``
+    for ENERGY_STEPS iterations with the trained score agent as the frozen
+    teacher (K=5 candidates, ``ode_adaptive``)."""
+    from genpose_tpu_torch.config import Config
+    from genpose_tpu_torch.ops import ball_query_cuda, fps_cuda
+    from genpose_tpu_torch.runners import trainer
+    from genpose_tpu_torch.training.agent import PoseAgent
+    from genpose_tpu_torch.training.checkpoints import latest_checkpoint, load_checkpoint
+    from genpose_tpu_torch.utils.weights import perturb_
+
+    out_dir = str(OUT_DIR / "train")
+    rng = np.random.default_rng(0)
+    result = {}
+
+    # ---- score: the released recipe, defaults of Config --------------------
+    scfg = Config(n_epochs=1, eval_freq=1, log_dir="score", seed=0)
+    loader = _raw_batches(rng, SCORE_STEPS, scfg.batch_size, scfg.num_points)
+    score = PoseAgent(scfg, "score", device=dev, steps_per_epoch=len(loader))
+    perturb_(score.model, seed=11)  # non-zero tails, so every parameter trains from step 1
+    params0 = {k: p.detach().clone() for k, p in score.params().items()}
+    stats0 = {k: v.clone() for k, v in score.model.state_dict().items() if "running" in k}
+    snaps = []
+    meter = StepMeter(score, "train_step")
+    orig = score.train_step  # the meter's wrapper
+
+    def step_and_snapshot(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        if len(snaps) < 2:
+            snaps.append(({k: p.detach().clone() for k, p in score.params().items()},
+                          {k: v.clone() for k, v in score.model.state_dict().items()
+                           if "running" in k}))
+        meter.calls[-1]["loss"] = float(out["gf"])
+        return out
+
+    score.train_step = step_and_snapshot
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fps_cuda.launches = ball_query_cuda.launches = 0
+    t0 = time.perf_counter()
+    trainer.train_score(scfg, loader, loader[:1], score, out_dir=out_dir)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fps": fps_cuda.launches, "ball_query": ball_query_cuda.launches}
+    peak = torch.cuda.max_memory_allocated()
+    delattr(score, "train_step")
+    steps = meter.calls
+    # the eval epoch samples the first batch of the train and the val loader
+    want = {"fps": 3 * (SCORE_STEPS + 2), "ball_query": 6 * (SCORE_STEPS + 2)}
+    if len(steps) != SCORE_STEPS or launches != want:
+        raise AssertionError(f"train_score: {len(steps)} steps, launches {launches}, "
+                             f"expected {SCORE_STEPS} steps and {want}")
+    for n, st in enumerate(steps):
+        if (st["fps"], st["ball_query"]) != (3, 6) or not np.isfinite(st["loss"]):
+            raise AssertionError(f"score step {n}: {st}")
+    (p1, s1), (p2, _) = snaps
+    if not all(torch.equal(p1[k], params0[k]) for k in params0):
+        raise AssertionError("the first step (lr 0) changed the params")
+    if not all(not torch.equal(p2[k], params0[k]) for k in params0):
+        raise AssertionError("the second step left some params as they were")
+    if all(torch.equal(s1[k], stats0[k]) for k in stats0):
+        raise AssertionError("the BatchNorm running statistics did not move")
+    shadow, live = score.state.ema.shadow, score.params()
+    if shadow is None or all(torch.equal(shadow[k], live[k]) for k in live):
+        raise AssertionError("the EMA shadow equals the live params")
+    s_step = float(np.median([st["s"] for st in steps[1:]]))
+    result["score"] = {"steps": SCORE_STEPS, "losses": [st["loss"] for st in steps],
+                       "s_per_step": s_step, "samples_per_s": scfg.batch_size / s_step,
+                       "first_step_s": steps[0]["s"], "loop_wall_s": wall,
+                       "peak_mem_gb": peak / 1e9, "launches": launches}
+    print(f"train_score (bs={scfg.batch_size}, N={scfg.num_points}, repeat {scfg.repeat_num}, "
+          f"Adam, {SCORE_STEPS} steps + eval epoch): {s_step:.4f} s per step = "
+          f"{scfg.batch_size / s_step:.1f} samples/s (first step {steps[0]['s']:.3f} s); "
+          f"losses {[round(x, 4) for x in result['score']['losses']]}; loop {wall:.2f} s; "
+          f"peak memory {peak / 1e9:.3f} GB; launches {launches}; {card}", flush=True)
+
+    # ---- energy with ranking: the trained score agent as frozen teacher ----
+    ecfg = scfg.replace(sampler_mode=("ode_adaptive",), log_dir="energy", eval_freq=100)
+    teacher = PoseAgent(ecfg, "score", device=dev)
+    load_checkpoint(latest_checkpoint(trainer.results_dirs(scfg, out_dir)[0]), teacher,
+                    load_model_only=True)
+    eloader = _raw_batches(rng, ENERGY_STEPS, ecfg.batch_size, ecfg.num_points)
+    energy = PoseAgent(ecfg, "energy", device=dev, steps_per_epoch=len(eloader))
+    perturb_(energy.model, seed=12)
+    e_params0 = {k: p.detach().clone() for k, p in energy.params().items()}
+    sample_meter = StepMeter(teacher, "sample")
+    step_meter = StepMeter(energy, "train_step_energy")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fps_cuda.launches = ball_query_cuda.launches = 0
+    t0 = time.perf_counter()
+    trainer.train_energy(ecfg, eloader, eloader[:1], energy, teacher, ranking=True,
+                         out_dir=out_dir)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fps": fps_cuda.launches, "ball_query": ball_query_cuda.launches}
+    peak = torch.cuda.max_memory_allocated()
+    sample_meter.close()
+    step_meter.close()
+    iters = list(zip(sample_meter.calls, step_meter.calls))
+    want = {"fps": 3 * ENERGY_STEPS, "ball_query": 6 * ENERGY_STEPS}
+    if len(iters) != ENERGY_STEPS or launches != want:
+        raise AssertionError(f"train_energy: {len(iters)} iterations, launches {launches}, "
+                             f"expected {ENERGY_STEPS} and {want}")
+    for n, (smp, stp) in enumerate(iters):
+        if (smp["fps"] + stp["fps"], smp["ball_query"] + stp["ball_query"]) != (3, 6):
+            raise AssertionError(f"energy iteration {n} did not share one geometry pass: "
+                                 f"{smp}, {stp}")
+    if energy.state.step != ENERGY_STEPS or teacher.state.step != 0:
+        raise AssertionError("the energy agent must train and the teacher stay frozen")
+    if all(torch.equal(p, e_params0[k]) for k, p in energy.params().items()):
+        raise AssertionError("train_energy left the energy params as they were")
+    shadow, live = energy.state.ema.shadow, energy.params()
+    if all(torch.equal(shadow[k], live[k]) for k in live):
+        raise AssertionError("the energy EMA shadow equals the live params")
+    it_s = [smp["s"] + stp["s"] for smp, stp in iters]
+    s_iter = float(np.median(it_s[1:]))
+    result["energy"] = {"iterations": ENERGY_STEPS, "s_per_iteration": s_iter,
+                        "samples_per_s": ecfg.batch_size / s_iter,
+                        "sample_s": [c["s"] for c in sample_meter.calls],
+                        "step_s": [c["s"] for c in step_meter.calls],
+                        "loop_wall_s": wall, "peak_mem_gb": peak / 1e9, "launches": launches}
+    print(f"train_energy ranking (bs={ecfg.batch_size}, K=5 candidates by ode_adaptive, "
+          f"{ENERGY_STEPS} iterations): {s_iter:.4f} s per iteration = "
+          f"{ecfg.batch_size / s_iter:.1f} samples/s; candidates "
+          f"{[round(c['s'], 4) for c in sample_meter.calls]} s, energy step "
+          f"{[round(c['s'], 4) for c in step_meter.calls]} s; loop {wall:.2f} s; "
+          f"peak memory {peak / 1e9:.3f} GB; launches {launches}; {card}", flush=True)
+
+    # ---- where the time goes: stage split and busy share --------------------
+    split = score_step_split(score, loader[0], torch.Generator(device=dev).manual_seed(5))
+    print("score step split (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f"; sum {sum(split.values()):.3f}; {card}", flush=True)
+    from genpose_tpu_torch.data.process import process_batch
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    batch = process_batch(loader[1], scfg.pose_mode, gen, scfg.pts_aug, device=dev)
+    busy_score = busy_share(lambda: score.train_step(batch, gen), "one score step")
+
+    def energy_iteration():
+        cands, geom = teacher.sample(batch, generator=gen, repeat_num=5, return_geometry=True)
+        energy.train_step_energy(batch, cands, gen, geometry=geom)
+
+    busy_energy = busy_share(energy_iteration, "one energy iteration")
+    result["score"].update(split_ms=split, busy_share=busy_score)
+    result["energy"].update(busy_share=busy_energy)
+    return result
+
+
+def _train_small(d, cfg, raws, draws, cands, t_int, zero_grads=False):
+    """3 score steps and 2 energy steps on device ``d`` from seeded weights
+    and the given batches and draws.  Returns the losses, the parameters
+    before, and the state dicts after (on the CPU).  ``zero_grads``: the
+    optimizer gets zeros for gradients (the check's control)."""
+    from genpose_tpu_torch.data.process import process_batch
+    from genpose_tpu_torch.training.agent import PoseAgent
+    from genpose_tpu_torch.utils.weights import perturb_
+
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(d)  # noqa: E731
+    agents = {"score": PoseAgent(cfg, "score", device=d), "energy": PoseAgent(cfg, "energy", device=d)}
+    perturb_(agents["score"].model, seed=21)
+    perturb_(agents["energy"].model, seed=22)
+    before = {f"{m}.{k}": p.detach().cpu().clone() for m, a in agents.items()
+              for k, p in a.params().items()}
+    if zero_grads:
+        for a in agents.values():
+            apply = a.state.apply_gradients
+            a.state.apply_gradients = lambda params, grads, _apply=apply: _apply(
+                params, {k: torch.zeros_like(g) for k, g in grads.items()})
+    losses = []
+    for n in range(3):
+        batch = process_batch(raws[n], device=d)
+        losses.append(float(agents["score"].train_step(
+            batch, noise=(f(draws[n][0]), f(draws[n][1])))["gf"]))
+    for n in range(2):
+        batch = process_batch(raws[n], device=d)
+        out = agents["energy"].train_step_energy(
+            batch, f(cands[n]) + batch["gt_pose"][:, None, :],
+            noise=(f(draws[3 + n][0]), f(draws[3 + n][1])), t_int=torch.as_tensor(t_int[n]).to(d))
+        losses += [float(out["gf"]), float(out["ranking"])]
+    after = {f"{m}.{k}": v.cpu() for m, a in agents.items() for k, v in a.model.state_dict().items()}
+    return losses, before, after
+
+
+def _update_diff(run, ref):
+    """The worst parameter's update difference: |(after - before) - (after_ref
+    - before_ref)| over |after_ref - before_ref| (norms over the tensor), with
+    the denominator held to at least 1e-4 of the largest update's norm."""
+    upd = {k: run[2][k] - b for k, b in run[1].items()}
+    want = {k: ref[2][k] - b for k, b in ref[1].items()}
+    floor = 1e-4 * max(float(u.norm()) for u in want.values())
+    return max(float((upd[k] - u).norm()) / max(float(u.norm()), floor)
+               for k, u in want.items())
+
+
+def training_cpu_gpu_agreement(dev):
+    """Phase 8: 3 score steps and 2 energy steps on the card and on the CPU
+    from the same weights, batches, draws and candidates.
+
+    Coordinates lie on a 2^-10 m grid and N = 128, so the cloud centers are
+    exact on both devices and the geometry is identical (the kernels equal
+    their plain versions).  What remains is the summation order of the
+    GEMMs (cuBLAS against the CPU BLAS), ~1e-6 relative per product, which
+    the encoder's float32 gradients amplify (train-mode BatchNorm over few
+    rows, max-pool choices): the JAX package and the port on the CPU give
+    gradients up to 5% apart by a leaf's norm
+    (tests/test_torch_training.py::test_step_gradients_match_jax).  SGD's
+    update is lr times the gradient, so each parameter's update (after -
+    before) is held against the CPU's relative to that update's norm, at
+    TRAIN_UPDATE_RTOL; a missing or sign-flipped gradient is off by 1 or 2.
+    The losses are held at rtol TRAIN_LOSS_RTOL, and every float tensor of
+    the state (params and BatchNorm statistics) at rtol 1e-3 / atol
+    TRAIN_PARAM_ATOL.  A control run on the card whose optimizer gets zeroed
+    gradients must fail the update check.
+    """
+    from genpose_tpu_torch.config import Config
+
+    cfg = Config(num_points=128, batch_size=4, repeat_num=2, warmup=1, optimizer="SGD")
+    rng = np.random.default_rng(4)
+    raws = _raw_batches(rng, 3, cfg.batch_size, cfg.num_points)
+    for raw in raws:
+        raw["pcl_in"] = (np.round(raw["pcl_in"] * 1024) / 1024).astype(np.float32)
+    draws = [(rng.uniform(1e-5, 1.0, (2, 4, 1)), rng.normal(size=(2, 4, 9))) for _ in range(5)]
+    cands = [rng.normal(size=(4, 3, 9)) * 0.3 for _ in range(2)]
+    t_int = [rng.integers(1, 10, (4, 1)) for _ in range(2)]
+    args = (cfg, raws, draws, cands, t_int)
+    gpu, cpu = _train_small(dev, *args), _train_small(torch.device("cpu"), *args)
+    (lg, _, sg), (lc, _, sc) = gpu, cpu
+    loss_diff = float(np.max(np.abs(np.array(lg) - np.array(lc)) / np.abs(np.array(lc))))
+    if not np.allclose(lg, lc, rtol=TRAIN_LOSS_RTOL, atol=0):
+        raise AssertionError(f"CUDA vs CPU training losses {lg} vs {lc}")
+    worst = 0.0
+    for k, v in sc.items():
+        if v.dtype != torch.float32:
+            continue
+        excess = (sg[k] - v).abs() - (TRAIN_PARAM_ATOL + 1e-3 * v.abs())
+        worst = max(worst, float((sg[k] - v).abs().max()))
+        if (excess > 0).any():
+            raise AssertionError(f"CUDA vs CPU training: {k} differs by "
+                                 f"{float((sg[k] - v).abs().max())}")
+    upd = _update_diff(gpu, cpu)
+    if upd > TRAIN_UPDATE_RTOL:
+        raise AssertionError(f"CUDA vs CPU training: parameter updates differ by {upd} "
+                             f"of their norm > {TRAIN_UPDATE_RTOL}")
+    control = _update_diff(_train_small(dev, *args, zero_grads=True), cpu)
+    if control <= TRAIN_UPDATE_RTOL:
+        raise AssertionError(f"the update check passes a run with zeroed gradients ({control})")
+    print(f"CUDA vs CPU training (3 score + 2 energy steps, bs=4, N=128, SGD): losses max "
+          f"relative difference {loss_diff:.3e} <= {TRAIN_LOSS_RTOL}; params and BN statistics "
+          f"max |a-b| {worst:.3e} (bound {TRAIN_PARAM_ATOL} + 1e-3 |b|); worst parameter "
+          f"update {upd:.3e} of its norm <= {TRAIN_UPDATE_RTOL}; control with zeroed "
+          f"gradients {control:.3e} > {TRAIN_UPDATE_RTOL}", flush=True)
+    return loss_diff, worst, upd, control
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -344,9 +802,10 @@ def main() -> int:
     print(f"built {lib.relative_to(_build.PKG_DIR.parent)} in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
 
-    fps_rows, bq_rows, max_err = check_kernels(dev)
-    for row in fps_rows + bq_rows:
+    fps_rows, bq_rows, fused_rows, max_err = check_kernels(dev)
+    for row in fps_rows + bq_rows + fused_rows:
         print(json.dumps(row), flush=True)
+    fused_launches, chain_times, fused_profiled = fused_geometry_path(dev)
 
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -370,27 +829,37 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     cpu_gpu_agreement(dev)
+    training = training_path(dev, card)
+    torch.cuda.empty_cache()
+    training_cpu_gpu_agreement(dev)
 
     fps_launches = results["ode"][1]["fps"]
     bq_launches = results["ode"][1]["ball_query"]
 
-    def summary(name, source, replaces, rows, launches):
-        """One request's worth of a kernel: the sum over its serving shapes."""
+    def summary(name, source, replaces, rows, launches, **extra):
+        """One path's worth of a kernel: the sum over its shapes on that path."""
         total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bytes", "ops")}
         bnd, by = bound_ms(total["bytes"], total["ops"])
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": max_err, "ms": total["ms"],
                 "plain_ms": total["plain_ms"], "bound_ms": bnd, "bound_by": by,
-                "library_ms": None,
-                "profiled_device_ms": profiled["ode"].get(name),
-                "per_request_shapes": rows}
+                "library_ms": None, "per_shape": rows, **extra}
 
+    train_launches = {k: training["score"]["launches"][k] for k in ("fps", "ball_query")}
     kernels = [
-        summary("fps", "genpose_tpu_torch/csrc/fps.cu", "genpose_tpu/ops/fps_pallas.py:38",
-                fps_rows, fps_launches),
+        summary("fps", "genpose_tpu_torch/csrc/fps.cu", "genpose_tpu/ops/fps_pallas.py:75",
+                fps_rows, fps_launches, profiled_device_ms=profiled["ode"].get("fps"),
+                path="serving request", training_score_run_launches=train_launches["fps"]),
         summary("ball_query", "genpose_tpu_torch/csrc/ball_query.cu",
-                "genpose_tpu/ops/ball_query_pallas.py:38", bq_rows, bq_launches),
+                "genpose_tpu/ops/ball_query_pallas.py:84", bq_rows, bq_launches,
+                profiled_device_ms=profiled["ode"].get("ball_query"), path="serving request",
+                training_score_run_launches=train_launches["ball_query"]),
+        summary("fps_bq_fused", "genpose_tpu_torch/csrc/fps_bq_fused.cu",
+                "genpose_tpu/ops/fps_bq_fused.py:135", fused_rows, fused_launches,
+                profiled_device_ms=fused_profiled,
+                path="geometry chain (tools/bench_fused_geometry.py)", chain_ms=chain_times),
     ]
+    print(json.dumps({"training": training}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,8 +3,8 @@
 Every ``genpose_tpu_torch/csrc/*.cu`` is compiled by its own ``nvcc``
 process, all started together, and linked into one shared library with a
 plain C interface under ``build/genpose_tpu_torch/``.  The library is loaded
-with ``ctypes``; the wrappers (``ops/fps_cuda.py``, ``ops/ball_query_cuda.py``)
-pass raw device pointers and the current CUDA stream as ``c_void_p``.
+with ``ctypes``; the wrappers (``ops/fps_cuda.py``, ``ops/ball_query_cuda.py``,
+``ops/fps_bq_fused_cuda.py``) pass raw device pointers and the current CUDA stream as ``c_void_p``.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper), ``-O3``, and
 ``-fmad=false``: nvcc otherwise contracts ``a*b + c`` into one FMA, which
@@ -106,6 +106,8 @@ def library() -> ctypes.CDLL:
     lib.gp_fps.restype = i
     lib.gp_ball_query.argtypes = [p, p, p, i, i, i, i, f, p]
     lib.gp_ball_query.restype = i
+    lib.gp_fps_bq_fused.argtypes = [p, p, p, i, i, i, i, p, p, p]
+    lib.gp_fps_bq_fused.restype = i
     lib.gp_error_string.argtypes = [i]
     lib.gp_error_string.restype = ctypes.c_char_p
     return lib

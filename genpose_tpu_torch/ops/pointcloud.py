@@ -12,10 +12,13 @@ Reference semantics (the upstream CUDA extension):
   backward is the scatter-add of ``group_points_gpu.cu``.
 
 Each kernel has two versions.  ``*_ref`` is the plain PyTorch version, a
-transcription of the JAX oracle; the dispatchers ``farthest_point_sample``
-and ``ball_query`` send a CPU tensor there and a CUDA tensor to the
-hand-written kernel (``ops/fps_cuda.py``, ``ops/ball_query_cuda.py``), which
-raises if it cannot run.  There is no size cutoff and no fallback.
+transcription of the JAX oracle; the dispatchers ``farthest_point_sample``,
+``ball_query`` and ``fps_bq_fused`` send a CPU tensor there and a CUDA
+tensor to the hand-written kernel (``ops/fps_cuda.py``,
+``ops/ball_query_cuda.py``, ``ops/fps_bq_fused_cuda.py``), which raises if
+it cannot run.  There is no size cutoff and no fallback.  The fused kernel
+is off the serving and training paths (``sa_geometry`` runs the separate
+kernels, as the JAX package does); ``tools/bench_fused_geometry.py`` runs it.
 
 Bit-exactness with the JAX oracles rests on the same float32 operation
 order: d^2 = ((dx*dx + dy*dy) + dz*dz), separate multiplies and adds, and
@@ -25,6 +28,8 @@ Layout: channels-last ``[B, N, C]`` throughout, as in the JAX package.
 """
 
 from __future__ import annotations
+
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -131,3 +136,34 @@ def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
     if xyz.device.type != "cpu":
         raise ValueError(f"no ball query for device {xyz.device}")
     return ball_query_ref(radius, nsample, xyz, new_xyz)
+
+
+# ---------------------------------------------------------------------------
+# Fused FPS + ball query
+# ---------------------------------------------------------------------------
+
+def fps_bq_fused_ref(xyz: torch.Tensor, npoint: int, radii: Sequence[float],
+                     nsamples: Sequence[int]) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Plain fused FPS + ball query: FPS -> gather centers -> ball query per
+    radius, the contract of ``genpose_tpu/ops/fps_bq_fused.py:28-33``.
+
+    xyz [B, N, 3] float32 -> (fps_idx [B, npoint] int32,
+    (bq_idx_k [B, npoint, nsamples[k]] int32 for each radius))."""
+    if not radii or len(radii) != len(nsamples):
+        raise ValueError(f"need one nsample per radius, got {radii} and {nsamples}")
+    idx = farthest_point_sample_ref(xyz, npoint)
+    centers = gather_points(xyz, idx)
+    return idx, tuple(ball_query_ref(r, s, xyz, centers) for r, s in zip(radii, nsamples))
+
+
+def fps_bq_fused(xyz: torch.Tensor, npoint: int, radii: Sequence[float],
+                 nsamples: Sequence[int]) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Fused FPS + ball query: the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU one."""
+    if xyz.is_cuda:
+        from genpose_tpu_torch.ops.fps_bq_fused_cuda import fps_bq_fused_cuda
+
+        return fps_bq_fused_cuda(xyz, npoint, radii, nsamples)
+    if xyz.device.type != "cpu":
+        raise ValueError(f"no fused FPS + ball query for device {xyz.device}")
+    return fps_bq_fused_ref(xyz, npoint, radii, nsamples)

@@ -1,9 +1,10 @@
 """Batched pose / rotation math in PyTorch (counterpart of ``genpose_tpu/ops/pose.py``).
 
-The subset the serving path needs: pose dims, quaternion <-> matrix, the
-reference's *transposed* 6D convention (``utils/misc.py:136``: the 6D vector
-holds the first two **columns** of R), rotation re-projection and the 4x4
-eigen-average of quaternions (``utils/misc.py:227-249``).  All functions are
+The subset the serving and training paths need: pose dims, quaternion <->
+matrix, the reference's *transposed* 6D convention (``utils/misc.py:136``:
+the 6D vector holds the first two **columns** of R), rotation re-projection,
+(R, t) inversion and the 4x4 eigen-average of quaternions
+(``utils/misc.py:227-249``).  All functions are
 batched over leading axes and keep the JAX package's operation order.
 """
 
@@ -117,6 +118,12 @@ def normalize_rotation(rotation: torch.Tensor, pose_mode: str) -> torch.Tensor:
     if pose_mode == "rot_matrix":
         return matrix_to_rot6d(rot6d_to_matrix(rotation))
     raise NotImplementedError(f"rotation mode {pose_mode} is not ported")
+
+
+def inverse_RT(rot: torch.Tensor, trans: torch.Tensor):
+    """Invert (R, t): returns (R^T, -R^T t) (reference ``misc.py:192-204``)."""
+    inv_rot = rot.transpose(-1, -2)
+    return inv_rot, -torch.einsum("...ij,...j->...i", inv_rot, trans)
 
 
 def average_quaternion_batch(Q: torch.Tensor, weights: torch.Tensor | None = None) -> torch.Tensor:

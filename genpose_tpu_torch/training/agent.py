@@ -1,30 +1,49 @@
-"""PoseAgent, the inference subset (counterpart of ``genpose_tpu/training/agent.py``).
+"""PoseAgent: training and inference orchestrator (counterpart of ``genpose_tpu/training/agent.py``).
 
-One agent holds one ``GFObjectPose`` (score or energy) and exposes what the
-serving pipeline runs:
+One agent holds one ``GFObjectPose`` (score or energy) with its live
+parameters in ``model`` and a ``TrainState`` (``training/state.py``) with the
+optimizer state and the EMA shadow.  It exposes:
 
 - ``pts_geometry`` (``agent.py:188-204``): the weight-independent PointNet++
   geometry of a cloud, shared by the score and energy encoders;
+- ``train_step`` (``agent.py:292-308``): one encoder pass in train mode
+  (BatchNorm on batch statistics, running statistics updated) and
+  ``repeat_num`` DSM draws through one head call, then the optimizer step
+  and the EMA update;
+- ``ema_loss`` (``agent.py:310-317``), ``train_step_distill`` (``:323-359``)
+  and ``zero_head_outputs`` (``:361-385``);
+- ``train_step_energy`` (``:394-449``): DSM through the energy's autograd
+  score plus the ranking loss over candidates sorted by their ground-truth
+  errors;
 - ``sample`` (the ``ode``/``ode_adaptive`` branches of ``_sample_impl``,
-  ``agent.py:455-553``): K hypotheses folded into the batch axis;
-- ``get_energy`` (``_get_energy_impl``, ``agent.py:581-593``);
-- ``aggregate_hypotheses`` (``agent.py:632-642``).
+  ``:455-553``), which reads the EMA shadow, and ``get_energy``
+  (``:581-593``), which reads the live parameters, as the JAX callers do;
+- ``aggregate_hypotheses`` (``:632-642``).
 
-The JAX agent keeps live params and an EMA shadow and picks one per call;
-this agent holds one set of weights, and the caller loads the set it wants
-(``load_jax``).  Training, likelihood, EDM and the PC sampler are not ported
-yet.
+Until the first optimizer step, or until a shadow is loaded, the EMA shadow
+*is* the live parameters (``ema.shadow is None``), so weights loaded or
+perturbed in ``model`` reach ``sample`` too.  A read of the shadow swaps it
+into the parameters' storage for the call and swaps back after.
+
+Randomness comes from an explicit ``torch.Generator``; the training steps
+also take their draws as arguments (``noise``, ``t_int``), so that tests can
+give both packages the same numbers.  Likelihood, EDM and the PC sampler
+are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+import contextlib
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
 from genpose_tpu_torch.config import Config
+from genpose_tpu_torch.diffusion.losses import dsm_loss_repeated
 from genpose_tpu_torch.diffusion.samplers import ode_sampler, ode_sampler_adaptive
 from genpose_tpu_torch.diffusion.sde import init_sde
+from genpose_tpu_torch.eval.metrics import pose_errors
+from genpose_tpu_torch.models.layers import FusedTails, SplitTail
 from genpose_tpu_torch.models.pointnet2 import cls_msg_geometry
 from genpose_tpu_torch.models.posenet import build_model
 from genpose_tpu_torch.ops.pose import (
@@ -33,59 +52,119 @@ from genpose_tpu_torch.ops.pose import (
     get_rot_matrix,
     matrix_to_quat_wxyz,
 )
-from genpose_tpu_torch.utils.weights import from_jax_variables
+from genpose_tpu_torch.training.ranking import ranking_loss, sort_results
+from genpose_tpu_torch.training.state import EMA, TrainState, create_train_state
+from genpose_tpu_torch.utils.weights import from_jax_variables, shadow_from_jax
+
+Noise = Tuple[torch.Tensor, torch.Tensor]
 
 
 class PoseAgent:
-    """Inference agent: model + SDE on one device."""
+    """Model + SDE + training state on one device."""
 
-    def __init__(self, cfg: Config, posenet_mode: Optional[str] = None, device="cuda"):
+    def __init__(self, cfg: Config, posenet_mode: Optional[str] = None, device="cuda",
+                 steps_per_epoch: int = 1000):
         self.cfg = cfg
         self.mode = posenet_mode or cfg.posenet_mode
         self.sde = init_sde(cfg.sde_mode)
         self.pose_dim = get_pose_dim(cfg.pose_mode)
         self.model = build_model(cfg, self.mode, device=device)
         self.device = next(self.model.parameters()).device
+        self.state: TrainState = create_train_state(
+            base_lr=cfg.lr, warmup_steps=cfg.warmup, decay_per_epoch=cfg.lr_decay,
+            steps_per_epoch=steps_per_epoch, floor_lr=cfg.lr_floor, grad_clip=cfg.grad_clip,
+            ema_rate=cfg.ema_rate, optimizer=cfg.optimizer)
 
-    def load_jax(self, params: Mapping, batch_stats: Mapping) -> "PoseAgent":
+    def params(self) -> Dict[str, torch.nn.Parameter]:
+        """The live parameters by name (the Fourier ``W`` is a buffer, not among them)."""
+        return dict(self.model.named_parameters())
+
+    def load_jax(self, params: Mapping, batch_stats: Mapping,
+                 ema_shadow: Optional[Mapping] = None) -> "PoseAgent":
         """Load JAX package weights (nested dicts of arrays; see
-        ``utils/weights.py::from_jax_variables``)."""
+        ``utils/weights.py::from_jax_variables``) as the live parameters, and
+        ``ema_shadow`` (same layout) as the EMA shadow; without it the shadow
+        is the live parameters."""
         self.model.load_state_dict(from_jax_variables(params, batch_stats))
+        shadow = None
+        if ema_shadow is not None:
+            shadow = shadow_from_jax(ema_shadow, params, self.params(), self.device)
+        self.state.ema = EMA(self.state.ema.decay, shadow)
         return self
 
     # ------------------------------------------------------------------
     # internals
     # ------------------------------------------------------------------
 
+    @contextlib.contextmanager
+    def ema_weights(self):
+        """Within the block the model computes with the EMA shadow (the live
+        parameters while there is no separate shadow).  Not for use under
+        autograd of the params."""
+        shadow = self.state.ema.shadow
+        if shadow is None:
+            yield
+            return
+        params = self.params()
+        live = {k: p.data for k, p in params.items()}
+        try:
+            for k, p in params.items():
+                p.data = shadow[k]
+            yield
+        finally:
+            for k, p in params.items():
+                p.data = live[k]
+
     def pts_geometry(self, pts: torch.Tensor):
         """FPS + ball query + grouped coordinates of a cloud, for every SA stage."""
         return cls_msg_geometry(pts, self.cfg.pointnet2_params)
 
-    def _head_projs(self, feat: torch.Tensor, repeat: int = 1):
-        """Tail projections of the cloud feature, with K hypotheses folded in
-        AFTER the projection.  ``repeat_interleave`` matches
-        ``jnp.repeat(..., axis=0)``: row b's copies are adjacent, as
-        ``.reshape(bs, K, -1)`` expects (``.repeat`` would tile instead)."""
-        projs = self.model.precompute_head(feat)
-        if repeat > 1:
-            if isinstance(projs, tuple):
-                return tuple(p.repeat_interleave(repeat, dim=0) for p in projs)
-            projs = projs.repeat_interleave(repeat, dim=0)
-        return projs
+    def _encode(self, pts: torch.Tensor, train: bool, geometry=None) -> torch.Tensor:
+        """The cloud feature; ``train`` runs BatchNorm on batch statistics and
+        updates its running statistics (one train-mode pass per step)."""
+        if not train:
+            return self.model.encode_pts(pts, geometry=geometry)
+        self.model.train()
+        try:
+            return self.model.encode_pts(pts, geometry=geometry)
+        finally:
+            self.model.eval()
 
-    def _head_score_fn(self, feat: torch.Tensor, repeat: int = 1):
-        projs = self._head_projs(feat, repeat)
+    def _head_projs(self, feat: torch.Tensor, repeat: int = 1, tile: int = 1):
+        """Tail projections of the cloud feature, folded AFTER the projection.
+
+        ``repeat`` folds K hypotheses: ``repeat_interleave`` matches
+        ``jnp.repeat(..., axis=0)``, so row b's copies are adjacent, as
+        ``.reshape(bs, K, -1)`` expects.  ``tile`` stacks the batch once per
+        DSM draw (row ``r * bs + b``), as ``dsm_loss_repeated`` lays out its
+        draws."""
+        projs = self.model.precompute_head(feat)
+
+        def fold(p):
+            if repeat > 1:
+                p = p.repeat_interleave(repeat, dim=0)
+            return p.repeat(tile, 1) if tile > 1 else p
+
+        return tuple(fold(p) for p in projs) if isinstance(projs, tuple) else fold(projs)
+
+    def _head_score_fn(self, feat: torch.Tensor, repeat: int = 1, tile: int = 1,
+                       create_graph: bool = False):
+        """score_fn(pose, t).  For an energy model the score is the gradient
+        of the summed energy w.r.t. the pose (``agent.py:229-238``); under
+        training (``create_graph``) that gradient stays differentiable in the
+        parameters, so the DSM loss reaches the energy head (a double
+        backward)."""
+        projs = self._head_projs(feat, repeat, tile)
         model = self.model
         if self.mode == "score":
             def score_fn(pose, t):
                 return model.score_with(projs, pose, t)
         else:
             def score_fn(pose, t):
-                # score = grad of the summed energy w.r.t. the pose (agent.py:229-238)
                 with torch.enable_grad():
                     p = pose.detach().requires_grad_(True)
                     e = model.energy_with(projs, p, t, decoupled_rt=False)
-                    (grad,) = torch.autograd.grad(e.sum(), p)
+                    (grad,) = torch.autograd.grad(e.sum(), p, create_graph=create_graph)
                 return grad
         return score_fn
 
@@ -97,6 +176,135 @@ class PoseAgent:
 
         return energy_fn
 
+    def _gf_loss(self, feat, gt_pose, generator=None, noise: Optional[Noise] = None,
+                 teacher_score_fn=None, create_graph: bool = True) -> torch.Tensor:
+        """The DSM term over ``cfg.repeat_num`` draws (the EDM loss is not ported)."""
+        score_fn = self._head_score_fn(feat, tile=self.cfg.repeat_num, create_graph=create_graph)
+        return dsm_loss_repeated(score_fn, gt_pose, self.sde, self.cfg.repeat_num,
+                                 teacher_score_fn=teacher_score_fn, generator=generator,
+                                 noise=noise)
+
+    def _optimize(self, loss_fn):
+        """Run ``loss_fn() -> (loss, aux)`` with gradients on the live
+        parameters, then one optimizer + EMA update.  Returns aux."""
+        params = self.params()
+        for p in params.values():
+            p.requires_grad_(True)
+        try:
+            with torch.enable_grad():
+                loss, aux = loss_fn()
+                grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        finally:
+            for p in params.values():
+                p.requires_grad_(False)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(params.items(), grads)}
+        self.state.apply_gradients(params, grads)
+        return aux
+
+    # ------------------------------------------------------------------
+    # score training
+    # ------------------------------------------------------------------
+
+    def train_step(self, batch, generator: Optional[torch.Generator] = None,
+                   noise: Optional[Noise] = None) -> Dict[str, torch.Tensor]:
+        """One optimization step of denoising score matching.  ``noise``:
+        (t [repeat, bs, 1], z [repeat, bs, pose_dim]), else drawn from ``generator``."""
+        def loss_fn():
+            feat = self._encode(batch["zero_mean_pts"], train=True)
+            loss = self._gf_loss(feat, batch["zero_mean_gt_pose"], generator, noise)
+            return loss, loss.detach()
+
+        return {"gf": self._optimize(loss_fn)}
+
+    @torch.no_grad()
+    def ema_loss(self, batch, generator: Optional[torch.Generator] = None,
+                 noise: Optional[Noise] = None) -> torch.Tensor:
+        """The DSM loss under the EMA weights, for monitoring (``posenet_agent.py:200-224``)."""
+        with self.ema_weights():
+            feat = self._encode(batch["zero_mean_pts"], train=False)
+            return self._gf_loss(feat, batch["zero_mean_gt_pose"], generator, noise,
+                                 create_graph=False)
+
+    def train_step_distill(self, teacher: "PoseAgent", batch,
+                           generator: Optional[torch.Generator] = None,
+                           noise: Optional[Noise] = None) -> Dict[str, torch.Tensor]:
+        """DSM against a frozen teacher's score (its EMA shadow, eval mode)
+        instead of -z/std (``losses.py:79-82``, ``trainer.py:406-419``)."""
+        if teacher is self:
+            raise ValueError("the teacher must be another agent")
+        pts = batch["zero_mean_pts"]
+        with teacher.ema_weights():
+            with torch.no_grad():
+                t_feat = teacher._encode(pts, train=False)
+            t_score = teacher._head_score_fn(t_feat, tile=self.cfg.repeat_num)
+
+            def teacher_fn(pose, t):
+                with torch.no_grad():
+                    return t_score(pose, t).detach()
+
+            def loss_fn():
+                feat = self._encode(pts, train=True)
+                loss = self._gf_loss(feat, batch["zero_mean_gt_pose"], generator, noise,
+                                     teacher_score_fn=teacher_fn)
+                return loss, loss.detach()
+
+            return {"gf": self._optimize(loss_fn)}
+
+    @torch.no_grad()
+    def zero_head_outputs(self) -> None:
+        """Re-zero the tail output layers after loading score weights into an
+        energy net (``output_zero_initial``, ``trainer.py:426``); the EMA
+        shadow becomes the live parameters again."""
+        for m in self.model.modules():
+            if isinstance(m, FusedTails):
+                m.out_kernel.zero_()
+                m.out_bias.zero_()
+            elif isinstance(m, SplitTail):
+                m.out.weight.zero_()
+                m.out.bias.zero_()
+        self.state.ema.shadow = None
+
+    # ------------------------------------------------------------------
+    # energy training (score DSM + ranking; ref posenet_agent.py:262-283)
+    # ------------------------------------------------------------------
+
+    def train_step_energy(self, batch, pose_samples: torch.Tensor,
+                          generator: Optional[torch.Generator] = None, geometry=None,
+                          noise: Optional[Noise] = None,
+                          t_int: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """pose_samples [bs, K, pose_dim]: candidates from the (frozen) score
+        model, translations in the camera frame.  ``geometry``: the encoder
+        geometry of ``batch["zero_mean_pts"]``, shared with the candidates'
+        sampling.  ``t_int`` [bs, 1]: integers in [1, 10) (t = t_int / 1e5),
+        else drawn from ``generator``."""
+        bs, K, _ = pose_samples.shape
+        with torch.no_grad():
+            flat = pose_samples.reshape(bs * K, -1)
+            rot_err, trans_err = pose_errors(
+                flat, batch["gt_pose"].repeat_interleave(K, dim=0),
+                batch["id"].reshape(-1).repeat_interleave(K, dim=0),
+                batch["handle_visibility"].reshape(-1).repeat_interleave(K, dim=0),
+                self.cfg.synset_names, self.cfg.pose_mode, self.cfg.o2c_pose)
+            metrics = torch.stack([rot_err, trans_err], dim=-1).reshape(bs, K, 2)
+            centered = torch.cat([pose_samples[..., :-3],
+                                  pose_samples[..., -3:] - batch["pts_center"][:, None, :]],
+                                 dim=-1).reshape(bs * K, -1)
+            if t_int is None:
+                t_int = torch.randint(1, 10, (bs, 1), generator=generator,
+                                      device=pose_samples.device)
+            t_samples = (t_int.to(pose_samples.dtype) / 1e5).repeat_interleave(K, dim=0)
+
+        def loss_fn():
+            feat = self._encode(batch["zero_mean_pts"], train=True, geometry=geometry)
+            dsm = self._gf_loss(feat, batch["zero_mean_gt_pose"], generator, noise)
+            energy = self._head_energy_fn(feat, repeat=K)(centered, t_samples)
+            rank = ranking_loss(sort_results(energy.reshape(bs, K, 2), metrics))
+            return dsm + rank, (dsm.detach(), rank.detach())
+
+        dsm, rank = self._optimize(loss_fn)
+        return {"gf": dsm, "ranking": rank}
+
     # ------------------------------------------------------------------
     # sampling (K hypotheses; ref posenet_agent.py:416-468)
     # ------------------------------------------------------------------
@@ -104,26 +312,32 @@ class PoseAgent:
     @torch.no_grad()
     def sample(self, batch, generator: Optional[torch.Generator] = None, repeat_num: int = 1,
                sampler: Optional[str] = None, num_steps: Optional[int] = None,
-               T0: Optional[float] = None, geometry=None) -> torch.Tensor:
+               T0: Optional[float] = None, geometry=None, return_geometry: bool = False):
         """batch {"zero_mean_pts" [bs, N, 3], "pts_center" [bs, 3]} ->
-        pred_pose [bs, repeat_num, pose_dim] in the camera frame."""
+        pred_pose [bs, repeat_num, pose_dim] in the camera frame, and with
+        ``return_geometry`` the encoder geometry of the cloud too (computed
+        here if not given), for an energy pass over the same cloud."""
         sampler = sampler or (self.cfg.sampler_mode[0] if self.cfg.sampler_mode else "ode")
         num_steps = num_steps or self.cfg.sampling_steps
         pts = batch["zero_mean_pts"]
         bs = pts.shape[0]
-        feat = self.model.encode_pts(pts, geometry=geometry)
-        center_rep = batch["pts_center"].repeat_interleave(repeat_num, dim=0)
-        score_fn = self._head_score_fn(feat, repeat=repeat_num)
-        kw = dict(T0=T0, pts_center=center_rep, generator=generator, device=pts.device)
-        if sampler == "ode":
-            res = ode_sampler(score_fn, bs * repeat_num, self.sde, self.cfg.pose_mode,
-                              num_steps=num_steps, **kw)
-        elif sampler == "ode_adaptive":
-            res = ode_sampler_adaptive(score_fn, bs * repeat_num, self.sde,
-                                       self.cfg.pose_mode, **kw)
-        else:
-            raise NotImplementedError(f"sampler {sampler!r} is not ported")
-        return res.reshape(bs, repeat_num, -1)
+        if return_geometry and geometry is None:
+            geometry = self.pts_geometry(pts)
+        with self.ema_weights():
+            feat = self._encode(pts, train=False, geometry=geometry)
+            center_rep = batch["pts_center"].repeat_interleave(repeat_num, dim=0)
+            score_fn = self._head_score_fn(feat, repeat=repeat_num)
+            kw = dict(T0=T0, pts_center=center_rep, generator=generator, device=pts.device)
+            if sampler == "ode":
+                res = ode_sampler(score_fn, bs * repeat_num, self.sde, self.cfg.pose_mode,
+                                  num_steps=num_steps, **kw)
+            elif sampler == "ode_adaptive":
+                res = ode_sampler_adaptive(score_fn, bs * repeat_num, self.sde,
+                                           self.cfg.pose_mode, **kw)
+            else:
+                raise NotImplementedError(f"sampler {sampler!r} is not ported")
+        res = res.reshape(bs, repeat_num, -1)
+        return (res, geometry) if return_geometry else res
 
     # ------------------------------------------------------------------
     # energies of candidate poses (ref posenet_agent.py:471-527)
@@ -133,11 +347,13 @@ class PoseAgent:
     def get_energy(self, batch, pose_samples: torch.Tensor, T: float,
                    geometry=None) -> torch.Tensor:
         """Energies [bs, K, 2] of candidates [bs, K, pose_dim] (camera frame)
-        at time T, with the cloud center subtracted from the translations."""
+        at time T under the live parameters, with the cloud center subtracted
+        from the translations."""
         bs, K, _ = pose_samples.shape
-        feat = self.model.encode_pts(batch["zero_mean_pts"], geometry=geometry)
+        feat = self._encode(batch["zero_mean_pts"], train=False, geometry=geometry)
         centered = torch.cat([pose_samples[..., :-3],
-                              pose_samples[..., -3:] - batch["pts_center"][:, None, :]], dim=-1)
+                              pose_samples[..., -3:] - batch["pts_center"][:, None, :]],
+                             dim=-1)
         t_input = torch.full((bs * K, 1), T, dtype=pose_samples.dtype,
                              device=pose_samples.device)
         energy_fn = self._head_energy_fn(feat, repeat=K)

@@ -1,8 +1,52 @@
-"""Energy-based hypothesis sorting (counterpart of ``genpose_tpu/training/ranking.py:59-75``)."""
+"""Ranking loss and energy-based hypothesis sorting (counterpart of ``genpose_tpu/training/ranking.py:23-75``).
+
+- ``ranking_loss``: the reference's O(K^2) pairwise loop (``reward.py:109-128``)
+  as one broadcast over an upper-triangular pair mask;
+- ``sort_results``: energies in ground-truth-error order, per channel
+  (``reward.py:63-83``);
+- ``sort_poses_by_energy``: decoupled rot/trans hypothesis sort
+  (``reward.py:131-155``).
+
+``jnp.argsort`` is stable, so equal keys keep their index order; every sort
+here passes ``stable=True`` (``descending=True`` would order ties
+differently, hence the negated keys).
+"""
 
 from __future__ import annotations
 
 import torch
+
+
+def ranking_loss(energy: torch.Tensor) -> torch.Tensor:
+    """Pairwise sign-based margin over K energies sorted by GT error.
+
+    energy [bs, K, 2], index 1 ordered best to worst.  For each ordered pair
+    i < j the term is ``1 + (E_j - E_i) / (|E_i - E_j| + 1e-5)``: ~0 when the
+    better pose has the higher energy, ~2 when mis-ranked.  The reference's
+    mean over (bs, channels) per pair, then over pairs, is the masked mean
+    over every entry.  K < 2 has no pair: the loss is 0, not 0/0.
+    """
+    K = energy.shape[1]
+    if K < 2:
+        return energy.new_zeros(())
+    e_i = energy[:, :, None, :]  # i (better) axis
+    e_j = energy[:, None, :, :]  # j (worse) axis
+    diff = 1.0 + (e_j - e_i) / (torch.abs(e_i - e_j) + 1e-5)
+    pair_mask = torch.triu(torch.ones(K, K, dtype=torch.bool, device=energy.device), diagonal=1)
+    masked = torch.where(pair_mask[None, :, :, None], diff, 0.0)
+    n_pairs = K * (K - 1) // 2
+    return torch.sum(masked) / (n_pairs * energy.shape[0] * energy.shape[-1])
+
+
+def sort_results(energy: torch.Tensor, metrics: torch.Tensor) -> torch.Tensor:
+    """Gather energies into GT-error order per channel (ref ``reward.py:63-83``).
+
+    energy, metrics [bs, K, 2] (channel 0 rotation, 1 translation)."""
+    rot_idx = torch.argsort(metrics[..., 0], dim=1, stable=True)
+    trans_idx = torch.argsort(metrics[..., 1], dim=1, stable=True)
+    e_rot = torch.gather(energy[..., 0], 1, rot_idx)
+    e_trans = torch.gather(energy[..., 1], 1, trans_idx)
+    return torch.stack([e_rot, e_trans], dim=-1)
 
 
 def sort_poses_by_energy(poses: torch.Tensor, energy: torch.Tensor):
@@ -12,10 +56,6 @@ def sort_poses_by_energy(poses: torch.Tensor, energy: torch.Tensor):
     poses [bs, K, pose_dim]; energy [bs, K, 2].  Returns (sorted_poses,
     sorted_energy).  Pose rows follow the rotation-energy order; the last 3
     columns (translation) are re-gathered by the translation-energy order.
-
-    ``jnp.argsort(-energy)`` is stable, so equal energies keep their index
-    order.  ``torch.argsort(-energy, stable=True)`` does the same;
-    ``descending=True`` would order ties differently.
     """
     order = torch.argsort(-energy, dim=1, stable=True)
     sorted_energy = torch.gather(energy, 1, order)

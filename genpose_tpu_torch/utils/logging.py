@@ -1,0 +1,80 @@
+"""Scalar logging (JSONL, and TensorBoard when installed) and the train clock
+(counterpart of ``genpose_tpu/utils/logging.py:38-110``).
+
+Replaces the reference's tensorboardX plumbing (``posenet_agent.py:553-598``)
+and ``TrainClock`` (``utils/genpose_utils.py:70-96``).  Every scalar lands in
+``<log_dir>/metrics.jsonl``, so a run can be read without TensorBoard.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Dict
+
+
+class TrainClock:
+    """Epoch / minibatch / step counter (ref ``genpose_utils.py:70-96``)."""
+
+    def __init__(self):
+        self.epoch = 1
+        self.minibatch = 0
+        self.step = 0
+
+    def tick(self):
+        self.minibatch += 1
+        self.step += 1
+
+    def tock(self):
+        self.epoch += 1
+        self.minibatch = 0
+
+    def make_checkpoint(self):
+        return {"epoch": self.epoch, "minibatch": self.minibatch, "step": self.step}
+
+    def restore_checkpoint(self, clock_dict):
+        self.epoch = clock_dict["epoch"]
+        self.minibatch = clock_dict["minibatch"]
+        self.step = clock_dict["step"]
+
+
+class MetricsLogger:
+    """Scalars to a JSONL file, and to TensorBoard if ``tensorboardX`` is installed."""
+
+    def __init__(self, log_dir: str, use_tensorboard: bool = True):
+        os.makedirs(log_dir, exist_ok=True)
+        self.log_dir = log_dir
+        self.jsonl_path = os.path.join(log_dir, "metrics.jsonl")
+        self._jsonl = open(self.jsonl_path, "a")
+        self.writer = None
+        if use_tensorboard:
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError:
+                pass
+            else:
+                self.writer = SummaryWriter(log_dir)
+
+    def scalar(self, tag: str, value: float, step: int):
+        if self.writer is not None:
+            self.writer.add_scalar(tag, value, step)
+        self._jsonl.write(json.dumps({"t": time.time(), "tag": tag, "value": float(value),
+                                      "step": int(step)}) + "\n")
+        # the file is read while a run goes on, and a crash must not lose its tail
+        self._jsonl.flush()
+
+    def scalars(self, values: Dict[str, float], step: int, prefix: str = ""):
+        for k, v in values.items():
+            self.scalar(f"{prefix}{k}", float(v), step)
+
+    def flush(self):
+        self._jsonl.flush()
+        if self.writer is not None:
+            self.writer.flush()
+
+    def close(self):
+        self.flush()
+        self._jsonl.close()
+        if self.writer is not None:
+            self.writer.close()

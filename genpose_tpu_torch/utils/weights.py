@@ -15,7 +15,9 @@ is by name:
 Which JAX weights to convert is the caller's choice and matters: the JAX
 serving pipeline samples with the score agent's EMA shadow
 (``agent.py:477``) and ranks with the energy agent's live params
-(``agent.py:583``).
+(``agent.py:583``).  ``from_jax_train_state`` carries a whole JAX training
+state (params, BatchNorm statistics, EMA shadow, step, optimizer moments)
+into a port agent.
 """
 
 from __future__ import annotations
@@ -59,6 +61,70 @@ def from_jax_variables(params: Mapping, batch_stats: Mapping) -> Dict[str, torch
         sd[".".join([*mods, stat_names[name]])] = _tensor(leaf)
         sd[".".join([*mods, "num_batches_tracked"])] = torch.tensor(0, dtype=torch.long)
     return sd
+
+
+def shadow_from_jax(ema_shadow: Mapping, params: Mapping, names, device) -> Dict[str, torch.Tensor]:
+    """A JAX EMA shadow as the port's shadow: a tensor per parameter name in
+    ``names``.  The port keeps the Fourier ``W`` as a buffer outside the
+    shadow, so the JAX shadow's ``W`` must equal the params' (it does in any
+    JAX state: ``W`` gets no update, so its average never moves)."""
+    sd, live = from_jax_variables(ema_shadow, {}), from_jax_variables(params, {})
+    for k in sd.keys() - set(names):
+        if not torch.equal(sd[k], live[k]):
+            raise ValueError(f"the EMA shadow's {k} differs from the params': the port "
+                             f"keeps it as a buffer, outside the shadow")
+    return {k: sd[k].to(device) for k in names}
+
+
+def _find_opt_states(node) -> Iterator[object]:
+    """The optax states inside a nested optimizer state that carry moments
+    (``mu``/``nu`` of Adam, ``trace`` of SGD momentum).  optax states are
+    named tuples, read by field name, so no optax import is needed."""
+    fields = getattr(node, "_fields", ())
+    if {"mu", "nu"} <= set(fields) or "trace" in fields:
+        yield node
+    elif isinstance(node, (tuple, list)):
+        for child in node:
+            yield from _find_opt_states(child)
+
+
+def from_jax_train_state(jax_state, agent) -> None:
+    """Carry a JAX package ``TrainState`` into a port ``PoseAgent``, so
+    that training resumes where the JAX state stands.
+
+    ``jax_state`` has the JAX TrainState's fields (``step``, ``params``,
+    ``batch_stats``, ``opt_state``, ``ema.num_updates``, ``ema.shadow``) as
+    arrays or nested dicts of arrays.  Loaded: params and BatchNorm running
+    statistics into ``agent.model``; step, EMA shadow and count, and Adam's
+    ``mu``/``nu`` (or SGD's ``trace``) into ``agent.state``.  The agent's
+    optimizer must be the one that made the state.
+    """
+    from genpose_tpu_torch.training.state import EMA
+
+    agent.model.load_state_dict(from_jax_variables(jax_state.params, jax_state.batch_stats))
+    names = set(agent.params())
+
+    def params_only(tree) -> Dict[str, torch.Tensor]:
+        sd = from_jax_variables(tree, {})
+        return {k: v.to(agent.device) for k, v in sd.items() if k in names}
+
+    st = agent.state
+    st.step = int(np.asarray(jax_state.step))
+    st.ema = EMA(st.ema.decay,
+                 shadow_from_jax(jax_state.ema.shadow, jax_state.params, names, agent.device),
+                 int(np.asarray(jax_state.ema.num_updates)))
+    found = list(_find_opt_states(jax_state.opt_state))
+    if len(found) != 1:
+        raise ValueError(f"expected one optimizer state with moments, found {len(found)}")
+    opt = found[0]
+    if hasattr(opt, "mu"):
+        if st.optimizer != "Adam":
+            raise ValueError(f"an Adam state cannot resume a {st.optimizer} agent")
+        st.opt_state = {"mu": params_only(opt.mu), "nu": params_only(opt.nu)}
+    else:
+        if st.optimizer != "SGD":
+            raise ValueError(f"an SGD state cannot resume a {st.optimizer} agent")
+        st.opt_state = {"trace": params_only(opt.trace)}
 
 
 @torch.no_grad()

@@ -43,8 +43,21 @@ def derandomize_agent(agent, seed):
     return agent
 
 
-def jax_agent(cfg, mode, seed):
-    return derandomize_agent(JaxAgent(cfg, mode), seed)
+def jax_agent(cfg, mode, seed, **kwargs):
+    return derandomize_agent(JaxAgent(cfg, mode, **kwargs), seed)
+
+
+def train_agent(cfg, mode, seed, **kwargs):
+    """A derandomised JAX agent whose state could come from training: the
+    EMA shadow's Fourier ``W`` equals the params' (``W`` is never updated,
+    so a real shadow never moves it; ``derandomize_agent`` perturbs it)."""
+    agent = jax_agent(cfg, mode, seed, **kwargs)
+    st = agent.state
+    shadow = jax.tree_util.tree_map(lambda x: x, st.ema.shadow)
+    shadow["head"]["trunk"]["t_fourier"]["W"] = jnp.copy(
+        st.params["head"]["trunk"]["t_fourier"]["W"])
+    agent.state = st.replace(ema=st.ema.replace(shadow=shadow))
+    return agent
 
 
 def port_agent(cfg, mode, agent, use_ema):
@@ -67,6 +80,17 @@ def pin_port_prior(agent, noise):
         agent.sde,
         prior=lambda shape, T=None, generator=None, device=None: torch.from_numpy(
             np.ascontiguousarray(noise[:shape[0]])).to(device))
+
+
+def dsm_noise(key, sde_eps, repeat, bs, pose_dim=9):
+    """The draws the JAX ``dsm_loss_repeated`` makes from ``key``, as the
+    port's ``noise`` argument: (t [repeat, bs, 1], z [repeat, bs, pose_dim])."""
+    ts, zs = [], []
+    for k in jax.random.split(key, repeat):
+        k_t, k_z = jax.random.split(k)
+        ts.append(np.asarray(jax.random.uniform(k_t, (bs, 1), minval=sde_eps, maxval=1.0)))
+        zs.append(np.asarray(jax.random.normal(k_z, (bs, pose_dim))))
+    return torch.from_numpy(np.stack(ts)), torch.from_numpy(np.stack(zs))
 
 
 def t_np(x):

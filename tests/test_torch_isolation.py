@@ -43,7 +43,9 @@ def test_port_file_imports_no_jax(path):
 def test_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for must in ("chip_smoke.py", "genpose_tpu_torch/runners/serving.py",
-                 "genpose_tpu_torch/ops/fps_cuda.py", "genpose_tpu_torch/ops/ball_query_cuda.py"):
+                 "genpose_tpu_torch/ops/fps_cuda.py", "genpose_tpu_torch/ops/ball_query_cuda.py",
+                 "genpose_tpu_torch/ops/fps_bq_fused_cuda.py",
+                 "genpose_tpu_torch/tools/bench_fused_geometry.py"):
         assert must in names
 
 

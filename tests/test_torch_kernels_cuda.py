@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from genpose_tpu_torch.ops import ball_query_cuda as bq_mod
+from genpose_tpu_torch.ops import fps_bq_fused_cuda as fused_mod
 from genpose_tpu_torch.ops import fps_cuda as fps_mod
 from genpose_tpu_torch.ops import pointcloud as pc
 
@@ -56,9 +57,38 @@ def test_ball_query_kernel_equals_plain(dev, N, M, radius, nsample):
     assert torch.equal(got, pc.ball_query_ref(radius, nsample, xyz, centers))
 
 
+@pytest.mark.parametrize("B,N,M,radii,nsamples", [
+    (64, 1024, 512, (0.02, 0.04), (16, 32)), (64, 512, 256, (0.04, 0.08), (16, 32)),
+    (64, 256, 128, (0.08, 0.16), (16, 32)), (4, 512, 256, (0.02, 0.04), (16, 32)),
+    (3, 256, 128, (0.08, 0.16), (16, 32)), (2, 100, 64, (0.3,), (8,)),
+    (3, 64, 512, (0.05, 1.0, 0.0), (4, 40, 2)), (2, 5000, 100, (0.01,), (7,))])
+def test_fused_kernel_equals_plain(dev, B, N, M, radii, nsamples):
+    """At the three stage shapes of the serving path (B=64), the JAX test's
+    shapes, npoint > N with an empty-ball radius, and N > 4096."""
+    xyz = _cloud(dev, B, N, seed=N + M)
+    got_idx, got_bq = fused_mod.fps_bq_fused_cuda(xyz, M, radii, nsamples)
+    torch.cuda.synchronize()
+    want_idx, want_bq = pc.fps_bq_fused_ref(xyz, M, radii, nsamples)
+    assert torch.equal(got_idx, want_idx)
+    for got, want in zip(got_bq, want_bq):
+        assert torch.equal(got, want)
+
+
+def test_fused_kernel_exact_boundary(dev):
+    """A point at d^2 == f32(0.01) from the first center: inside r=0.1
+    when r^2 is rounded once from the double square, as the JAX package does."""
+    xyz = torch.tensor([[[0.0, 0, 0], [0.09998, 0.002, 0.0], [0.05, 0, 0], [0.5, 0, 0],
+                         [0.49, 0, 0]]], device=dev)
+    got = fused_mod.fps_bq_fused_cuda(xyz, 3, (0.1, 0.5), (4, 4))
+    want = pc.fps_bq_fused_ref(xyz, 3, (0.1, 0.5), (4, 4))
+    assert torch.equal(got[0], want[0])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+
+
 def test_dispatchers_launch_the_kernels(dev):
     xyz = _cloud(dev, 2, 128, seed=1)
-    f0, b0 = fps_mod.launches, bq_mod.launches
+    f0, b0, u0 = fps_mod.launches, bq_mod.launches, fused_mod.launches
     idx = pc.farthest_point_sample(xyz, 32)
     pc.ball_query(0.1, 8, xyz, pc.gather_points(xyz, idx))
-    assert (fps_mod.launches - f0, bq_mod.launches - b0) == (1, 1)
+    pc.fps_bq_fused(xyz, 32, (0.1,), (8,))
+    assert (fps_mod.launches - f0, bq_mod.launches - b0, fused_mod.launches - u0) == (1, 1, 1)
