@@ -11,12 +11,14 @@ non-zero and prints no result line):
 1. the card's name and power limit, from ``nvidia-smi``;
 2. build the CUDA kernels from ``genpose_tpu_torch/csrc`` (``ops/_build.py``);
 3. hold each kernel against its plain PyTorch version, bit for bit, at the
-   shapes the paths give them (B=64 clouds of 1024 points: FPS 1024->512,
-   512->256, 256->128; ball query at both radii of each stage; the fused
-   FPS + ball query at the three stages, also against the separate
+   shapes the paths give them (B=64 clouds of 1024 points, the serving
+   batch, and B=192, the training batch: FPS 1024->512, 512->256, 256->128
+   and one ball-query launch for both radii of each stage; the fused FPS +
+   ball query at the three stages at B=64, also against the separate
    kernels), plus ties, an unaligned N, npoint > N, empty balls,
-   exact-boundary cases and the JAX fused-kernel test's cases; time each
-   kernel and its plain version with CUDA events;
+   exact-boundary cases, a three-radius ball query with r=0 and the JAX
+   fused-kernel test's cases; time each kernel and its plain version at
+   B=64 with CUDA events and by ``torch.profiler``;
 4. the fused kernel's path: the three-stage geometry chain of
    ``tools/bench_fused_geometry.py``, once per arm with the launch counts
    read around it, then both arms timed (the fused kernel's win or loss)
@@ -25,7 +27,7 @@ non-zero and prints no result line):
    (``InferencePipeline``: bs=64, K=50, N=1024, light PointNet++, VE SDE,
    Rx_Ry_and_T heads) with seeded random non-zero weights, once with the
    Heun ``ode`` sampler and once with ``ode_adaptive``; check that each run
-   launched FPS 3 times and ball query 6 times per chunk, and that the
+   launched FPS 3 times and ball query 3 times per chunk, and that the
    outputs are finite and well formed;
    then split one more request by stage and profile it (device busy share,
    top kernels);
@@ -39,7 +41,7 @@ non-zero and prints no result line):
    trained score agent as teacher (K=5 candidates by ``ode_adaptive``).
    Checks: finite losses, params unchanged by the first step (lr 0) and
    changed by the second, BatchNorm statistics moved, EMA shadow apart from
-   the live params, FPS 3 and ball query 6 launches per score step and per
+   the live params, FPS 3 and ball query 3 launches per score step and per
    energy iteration (one geometry pass shared by the candidates and the
    energy step).  Prints seconds per step, samples/s, peak memory, a stage
    split of one score step and the device busy share;
@@ -73,6 +75,7 @@ HEUN_STEPS = 500  # the config default; the whole run stays far inside its time 
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 CPU_GPU_TOL = 1e-3
+B_TRAIN = 192  # the training batch of the released recipe
 SCORE_STEPS, ENERGY_STEPS = 4, 3  # training steps at full width
 TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL = 1e-4, 1e-4  # training CUDA vs CPU (phase 8)
 TRAIN_UPDATE_RTOL = 0.2  # phase 8: a parameter's update, relative to its norm
@@ -139,16 +142,56 @@ def object_clouds(gen: torch.Generator, n: int, n_points: int, device, grid: flo
     return pts.contiguous()
 
 
-def examined_pairs(xyz, centers, radius, nsample, bq):
-    """(center, point) pairs a ball query that stops at its nsample-th hit
-    examines on this data, and the mean hit count per center."""
+def examined_pairs(xyz, centers, radii, nsamples, tables):
+    """What a multi-radius ball query whose rows stop at their nsample-th hit
+    needs on this data: the (center, point) pairs up to the later of a
+    center's row stops, the pairs up to each radius's own stop, and the mean
+    hit count per center of each radius."""
     from genpose_tpu_torch.ops import pointcloud as pc
 
     d2 = pc._sq_dist(centers[:, :, None, :], xyz[:, None, :, :])
-    cnt = (d2 < pc.radius_sq_f32(radius)).sum(-1)
-    examined = torch.where(cnt >= nsample, bq[..., -1].long() + 1,
-                           torch.full_like(cnt, xyz.shape[1]))
-    return float(examined.sum()), float(cnt.float().mean())
+    stops, hits = [], []
+    for radius, nsample, table in zip(radii, nsamples, tables):
+        cnt = (d2 < pc.radius_sq_f32(radius)).sum(-1)
+        full = torch.full_like(cnt, xyz.shape[1])
+        stops.append(torch.zeros_like(cnt) if nsample == 0 else
+                     torch.where(cnt >= nsample, table[..., -1].long() + 1, full))
+        hits.append(float(cnt.float().mean()))
+    later = torch.stack(stops).amax(0)
+    return float(later.sum()), [float(st.sum()) for st in stops], hits
+
+
+def device_ms(fn, iters: int, tag: str):
+    """Device milliseconds per call of the kernels whose name holds ``tag``,
+    by ``torch.profiler`` over ``iters`` calls after a warm call: unlike CUDA
+    events around back-to-back calls, it leaves out the host's issue time.
+    A trace that lost launches is taken again; after three such traces the
+    time is not measured (None), which is printed."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                  and tag in e.key]
+        seen = sum(e.count for e in events)
+        if seen == iters:
+            return sum(e.self_device_time_total for e in events) / 1e3 / iters
+        print(f"profiler: the trace holds {seen} of the {iters} launches of {tag} "
+              f"({[e.key[:60] for e in events]})", flush=True)
+    print(f"profiler: device time of {tag} not measured", flush=True)
+    return None
+
+
+def _flat(x):
+    """A kernel's result as one index vector: a tensor, or nested tuples of them."""
+    if isinstance(x, torch.Tensor):
+        return x.flatten()
+    return torch.cat([_flat(t) for t in x])
 
 
 def check_kernels(dev):
@@ -165,57 +208,79 @@ def check_kernels(dev):
     xyz = xyz - xyz.mean(dim=1, keepdim=True)  # the pipeline zero-centers
     fps_rows, bq_rows, fused_rows = [], [], []
     err = 0  # max |kernel - plain| over every compared index
-    for (n, npoint), radii in zip(FPS_SHAPES, BQ_RADII):
-        got, want = fps_cuda(xyz, npoint), pc.farthest_point_sample_ref(xyz, npoint)
+
+    def same(got, want, what):
+        nonlocal err
         torch.cuda.synchronize()
+        got, want = _flat(got), _flat(want)
         if not torch.equal(got, want):
-            raise AssertionError(f"FPS kernel != plain at N={n} npoint={npoint}")
-        err = max(err, int((got - want).abs().max()))
+            raise AssertionError(f"kernel != plain: {what}")
+        err = max(err, int((got - want).abs().max()) if got.numel() else 0)
+
+    for (n, npoint), radii in zip(FPS_SHAPES, BQ_RADII):
+        got = fps_cuda(xyz, npoint)
+        same(got, pc.farthest_point_sample_ref(xyz, npoint), f"FPS N={n} npoint={npoint}")
         ms = cuda_ms(lambda: fps_cuda(xyz, npoint), 50)
+        dev_ms = device_ms(lambda: fps_cuda(xyz, npoint), 20, "fps_kernel")
         plain = cuda_ms(lambda: pc.farthest_point_sample_ref(xyz, npoint), 3)
         # per point per round: 3 sub, 3 mul, 2 add, 1 min, 1 compare
         fps_rows.append(row(f"B{B} N{n} npoint{npoint}", ms, plain,
-                            B * n * 12 + B * npoint * 4, B * (npoint - 1) * n * 10))
+                            B * n * 12 + B * npoint * 4, B * (npoint - 1) * n * 10,
+                            device_ms=dev_ms,
+                            us_per_round=None if dev_ms is None else dev_ms * 1e3 / (npoint - 1)))
         centers = pc.gather_points(xyz, got)
-        separate, examined_all = [], 0.0
-        for radius, nsample in zip(radii, BQ_NSAMPLE):
-            got_bq = ball_query_cuda(radius, nsample, xyz, centers)
-            want_bq = pc.ball_query_ref(radius, nsample, xyz, centers)
-            torch.cuda.synchronize()
-            if not torch.equal(got_bq, want_bq):
-                raise AssertionError(f"ball query kernel != plain at N={n} M={npoint} "
-                                     f"r={radius} S={nsample}")
-            err = max(err, int((got_bq - want_bq).abs().max()))
-            separate.append(got_bq)
-            ms = cuda_ms(lambda: ball_query_cuda(radius, nsample, xyz, centers), 50)
-            plain = cuda_ms(lambda: pc.ball_query_ref(radius, nsample, xyz, centers), 5)
-            # the kernel examines points of a center until it has nsample hits:
-            # count the (center, point) pairs this data needs, 9 ops each
-            examined, mean_hits = examined_pairs(xyz, centers, radius, nsample, want_bq)
-            examined_all += examined
-            n_bytes = B * n * 12 + B * npoint * 12 + B * npoint * nsample * 4
-            bq_rows.append(row(f"B{B} N{n} M{npoint} r{radius} S{nsample}", ms, plain,
-                               n_bytes, examined * 9, mean_hits=mean_hits))
+        # ball query: both radii of the stage in one launch
+        got_bq = ball_query_cuda(radii, BQ_NSAMPLE, xyz, centers)
+        want_bq = pc.ball_query_msg_ref(radii, BQ_NSAMPLE, xyz, centers)
+        same(got_bq, want_bq, f"ball query N={n} M={npoint} r={radii} S={BQ_NSAMPLE}")
+        ms = cuda_ms(lambda: ball_query_cuda(radii, BQ_NSAMPLE, xyz, centers), 50)
+        dev_ms = device_ms(lambda: ball_query_cuda(radii, BQ_NSAMPLE, xyz, centers), 20,
+                           "ball_query_kernel")
+        plain = cuda_ms(lambda: pc.ball_query_msg_ref(radii, BQ_NSAMPLE, xyz, centers), 5)
+        # what this data needs: each distance once, up to the later of a
+        # center's row stops, at 8 operations (3 sub, 3 mul, 2 add), plus one
+        # compare per radius up to that radius's stop; beside it the bound of
+        # the earlier count, one launch per radius with its own distances
+        # (8 operations and a compare per pair)
+        later, per_radius, mean_hits = examined_pairs(xyz, centers, radii, BQ_NSAMPLE, want_bq)
+        io = B * n * 12 + B * npoint * 12
+        per_radius_bound = sum(bound_ms(io + B * npoint * s * 4, pairs * 9)[0]
+                               for s, pairs in zip(BQ_NSAMPLE, per_radius))
+        bq_rows.append(row(f"B{B} N{n} M{npoint} r{radii} S{BQ_NSAMPLE}", ms, plain,
+                           io + B * npoint * sum(BQ_NSAMPLE) * 4,
+                           later * 8 + sum(per_radius), device_ms=dev_ms, mean_hits=mean_hits,
+                           per_radius_bound_ms=per_radius_bound))
         # fused: bit for bit against its plain version and the separate kernels
         got_f = fps_bq_fused_cuda(xyz, npoint, radii, BQ_NSAMPLE)
-        want_f = pc.fps_bq_fused_ref(xyz, npoint, radii, BQ_NSAMPLE)
-        torch.cuda.synchronize()
-        for name, other in (("plain", want_f), ("separate kernels", (got, tuple(separate)))):
-            if not (torch.equal(got_f[0], other[0])
-                    and all(torch.equal(a, b) for a, b in zip(got_f[1], other[1]))):
-                raise AssertionError(f"fused kernel != {name} at N={n} npoint={npoint}")
+        same(got_f, pc.fps_bq_fused_ref(xyz, npoint, radii, BQ_NSAMPLE),
+             f"fused vs plain N={n} npoint={npoint}")
+        same(got_f, (got, got_bq), f"fused vs separate kernels N={n} npoint={npoint}")
         ms = cuda_ms(lambda: fps_bq_fused_cuda(xyz, npoint, radii, BQ_NSAMPLE), 50)
         plain = cuda_ms(lambda: pc.fps_bq_fused_ref(xyz, npoint, radii, BQ_NSAMPLE), 3)
-        # each input and output once; the FPS rounds' distance rows (one more
-        # for the last center) and one compare per examined (center, point)
-        # pair and radius: the distance is shared
+        # each input and output once; the FPS rounds' distance rows (one more,
+        # at 8 operations a point, for the last center) and one compare per
+        # examined (center, point) pair and radius: the distance is shared
         n_bytes = B * n * 12 + B * npoint * 4 + B * npoint * sum(BQ_NSAMPLE) * 4
-        n_ops = B * (npoint - 1) * n * 10 + B * n * 9 + examined_all
+        n_ops = B * (npoint - 1) * n * 10 + B * n * 8 + sum(per_radius)
         fused_rows.append(row(f"B{B} N{n} npoint{npoint} r{radii} S{BQ_NSAMPLE}", ms, plain,
                               n_bytes, n_ops))
         xyz = centers
 
-    # edge cases: ties, unaligned N, npoint > N, exact boundary, empty balls
+    # the training batch at each stage, where the kernels choose differently
+    # (one lane per ball-query center at every stage)
+    train = object_clouds(gen, B_TRAIN, N_POINTS, dev)
+    train = train - train.mean(dim=1, keepdim=True)
+    for (n, npoint), radii in zip(FPS_SHAPES, BQ_RADII):
+        idx = fps_cuda(train, npoint)
+        same(idx, pc.farthest_point_sample_ref(train, npoint), f"FPS B={B_TRAIN} N={n}")
+        centers = pc.gather_points(train, idx)
+        same(ball_query_cuda(radii, BQ_NSAMPLE, train, centers),
+             pc.ball_query_msg_ref(radii, BQ_NSAMPLE, train, centers),
+             f"ball query B={B_TRAIN} N={n} M={npoint} r={radii}")
+        train = centers
+
+    # ties, unaligned N, npoint > N, exact boundary, empty balls, three
+    # radii with r=0
     ties = torch.zeros(3, 100, 3, device=dev)
     ties[:, 50:] = 1.0
     odd = torch.randn(5, 777, 3, generator=gen, device=dev) * 0.1
@@ -225,20 +290,22 @@ def check_kernels(dev):
     if f32(f32(f32(0.09998) ** 2) + f32(f32(0.002) ** 2)) != f32(0.1 * 0.1):
         raise AssertionError("the boundary point does not sit on r=0.1")
     origin = torch.zeros(1, 1, 3, device=dev)
+    c77 = odd[:, :77].contiguous()
     cases = [
         ("fps ties, npoint > N", lambda: fps_cuda(ties, 150),
          lambda: pc.farthest_point_sample_ref(ties, 150)),
         ("fps N=777", lambda: fps_cuda(odd, 300), lambda: pc.farthest_point_sample_ref(odd, 300)),
         ("fps N=64 npoint=512", lambda: fps_cuda(odd[:, :64].contiguous(), 512),
          lambda: pc.farthest_point_sample_ref(odd[:, :64].contiguous(), 512)),
-        ("bq N=777 M=77", lambda: ball_query_cuda(0.3, 32, odd, odd[:, :77].contiguous()),
-         lambda: pc.ball_query_ref(0.3, 32, odd, odd[:, :77].contiguous())),
-        ("bq empty balls", lambda: ball_query_cuda(0.01, 8, odd, odd[:, :40] + 5.0),
-         lambda: pc.ball_query_ref(0.01, 8, odd, odd[:, :40] + 5.0)),
-        ("bq boundary r=0.1", lambda: ball_query_cuda(0.1, 4, edge, origin),
-         lambda: pc.ball_query_ref(0.1, 4, edge, origin)),
-        ("bq boundary r=0.5", lambda: ball_query_cuda(0.5, 4, edge, origin),
-         lambda: pc.ball_query_ref(0.5, 4, edge, origin)),
+        ("bq N=777 M=77", lambda: ball_query_cuda((0.1, 0.3), (16, 32), odd, c77),
+         lambda: pc.ball_query_msg_ref((0.1, 0.3), (16, 32), odd, c77)),
+        ("bq empty balls", lambda: ball_query_cuda((0.01, 0.1), (8, 16), odd, odd[:, :40] + 5.0),
+         lambda: pc.ball_query_msg_ref((0.01, 0.1), (8, 16), odd, odd[:, :40] + 5.0)),
+        ("bq boundary r=0.1 and r=0.5", lambda: ball_query_cuda((0.1, 0.5), (4, 4), edge, origin),
+         lambda: pc.ball_query_msg_ref((0.1, 0.5), (4, 4), edge, origin)),
+        ("bq three radii with r=0",
+         lambda: ball_query_cuda((0.05, 0.3, 0.0), (4, 32, 2), odd, c77),
+         lambda: pc.ball_query_msg_ref((0.05, 0.3, 0.0), (4, 32, 2), odd, c77)),
     ]
     rng = np.random.RandomState(11)
     for b, n, m, radii, nsamples in ((4, 512, 256, (0.02, 0.04), (16, 32)),
@@ -259,16 +326,10 @@ def check_kernels(dev):
          lambda: pc.fps_bq_fused_ref(torch.cat([origin, edge], 1), 3, (0.1, 0.5), (4, 4))),
     ]
     for name, kern, plain in cases:
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        if isinstance(got, tuple):  # fused: (fps_idx, per-radius tables)
-            got, want = (torch.cat([got[0].flatten(), *(t.flatten() for t in got[1])]),
-                         torch.cat([want[0].flatten(), *(t.flatten() for t in want[1])]))
-        if not torch.equal(got, want):
-            raise AssertionError(f"kernel != plain: {name}")
-        err = max(err, int((got - want).abs().max()))
-    print(f"kernels equal their plain versions at the 9 serving shapes, the fused kernel "
-          f"at the 3 stage shapes, and {len(cases)} edge cases", flush=True)
+        same(kern(), plain(), name)
+    print(f"kernels equal their plain versions at the 3 FPS and 3 two-radius ball-query "
+          f"stage shapes at B={B} and at B={B_TRAIN}, the fused kernel at the 3 stage shapes, "
+          f"and {len(cases)} edge cases", flush=True)
     return fps_rows, bq_rows, fused_rows, err
 
 
@@ -300,9 +361,9 @@ def drive(pipe, pts: np.ndarray, label: str):
     out = pipe.predict(pts, generator=gen)  # ends in host copies: synchronised
     seconds = time.perf_counter() - t0
     launches = {"fps": fps_cuda.launches, "ball_query": ball_query_cuda.launches}
-    if launches != {"fps": 3 * chunks, "ball_query": 6 * chunks}:
+    if launches != {"fps": 3 * chunks, "ball_query": 3 * chunks}:
         raise AssertionError(f"{label}: main path launches {launches}, expected "
-                             f"{3 * chunks} FPS and {6 * chunks} ball query")
+                             f"{3 * chunks} FPS and {3 * chunks} ball query")
     n = pts.shape[0]
     want_shapes = {"pred_pose": (n, 7), "best_pose": (n, 7),
                    "sorted_hypotheses": (n, pipe.K, 9), "energy": (n, pipe.K, 2)}
@@ -424,7 +485,7 @@ def fused_geometry_path(dev):
         torch.cuda.synchronize()
         launches[use_fused] = {k: m.launches for k, m in mods.items()}
     want = {True: {"fps": 0, "ball_query": 0, "fps_bq_fused": 3},
-            False: {"fps": 3, "ball_query": 6, "fps_bq_fused": 0}}
+            False: {"fps": 3, "ball_query": 3, "fps_bq_fused": 0}}
     if launches != want:
         raise AssertionError(f"geometry chain launches {launches}, expected {want}")
     for (fi_f, bq_f), (fi_s, bq_s) in zip(outs[True], outs[False]):
@@ -578,12 +639,12 @@ def training_path(dev, card):
     delattr(score, "train_step")
     steps = meter.calls
     # the eval epoch samples the first batch of the train and the val loader
-    want = {"fps": 3 * (SCORE_STEPS + 2), "ball_query": 6 * (SCORE_STEPS + 2)}
+    want = {"fps": 3 * (SCORE_STEPS + 2), "ball_query": 3 * (SCORE_STEPS + 2)}
     if len(steps) != SCORE_STEPS or launches != want:
         raise AssertionError(f"train_score: {len(steps)} steps, launches {launches}, "
                              f"expected {SCORE_STEPS} steps and {want}")
     for n, st in enumerate(steps):
-        if (st["fps"], st["ball_query"]) != (3, 6) or not np.isfinite(st["loss"]):
+        if (st["fps"], st["ball_query"]) != (3, 3) or not np.isfinite(st["loss"]):
             raise AssertionError(f"score step {n}: {st}")
     (p1, s1), (p2, _) = snaps
     if not all(torch.equal(p1[k], params0[k]) for k in params0):
@@ -630,12 +691,12 @@ def training_path(dev, card):
     sample_meter.close()
     step_meter.close()
     iters = list(zip(sample_meter.calls, step_meter.calls))
-    want = {"fps": 3 * ENERGY_STEPS, "ball_query": 6 * ENERGY_STEPS}
+    want = {"fps": 3 * ENERGY_STEPS, "ball_query": 3 * ENERGY_STEPS}
     if len(iters) != ENERGY_STEPS or launches != want:
         raise AssertionError(f"train_energy: {len(iters)} iterations, launches {launches}, "
                              f"expected {ENERGY_STEPS} and {want}")
     for n, (smp, stp) in enumerate(iters):
-        if (smp["fps"] + stp["fps"], smp["ball_query"] + stp["ball_query"]) != (3, 6):
+        if (smp["fps"] + stp["fps"], smp["ball_query"] + stp["ball_query"]) != (3, 3):
             raise AssertionError(f"energy iteration {n} did not share one geometry pass: "
                                  f"{smp}, {stp}")
     if energy.state.step != ENERGY_STEPS or teacher.state.step != 0:
@@ -839,6 +900,10 @@ def main() -> int:
     def summary(name, source, replaces, rows, launches, **extra):
         """One path's worth of a kernel: the sum over its shapes on that path."""
         total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bytes", "ops")}
+        for key in ("device_ms", "per_radius_bound_ms"):
+            if key in rows[0]:
+                vals = [r[key] for r in rows]
+                extra[key] = None if None in vals else sum(vals)
         bnd, by = bound_ms(total["bytes"], total["ops"])
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": max_err, "ms": total["ms"],
@@ -852,7 +917,8 @@ def main() -> int:
                 path="serving request", training_score_run_launches=train_launches["fps"]),
         summary("ball_query", "genpose_tpu_torch/csrc/ball_query.cu",
                 "genpose_tpu/ops/ball_query_pallas.py:84", bq_rows, bq_launches,
-                profiled_device_ms=profiled["ode"].get("ball_query"), path="serving request",
+                profiled_device_ms=profiled["ode"].get("ball_query"),
+                path="serving request",
                 training_score_run_launches=train_launches["ball_query"]),
         summary("fps_bq_fused", "genpose_tpu_torch/csrc/fps_bq_fused.cu",
                 "genpose_tpu/ops/fps_bq_fused.py:135", fused_rows, fused_launches,

@@ -12,30 +12,51 @@
 // What bounds it on this card: not bytes (a 1024-point cloud is 12 KB) and
 // not arithmetic (~10 flops per point per round), but latency.  The rounds
 // are a sequential chain, each ending in a block-wide argmax whose result
-// the next round needs: npoint-1 dependent block reductions per cloud.
+// the next round needs: npoint-1 dependent block reductions per cloud.  So
+// the design shortens the round, not the work.
 //
-// Simple design: one block per cloud.  Each thread keeps P points and their
-// running min distance in registers (point i lives in thread i % T, slot
-// i / T, so a thread scans its points in increasing index order and a strict
-// '>' keeps the first maximum).  The cloud is also staged in shared memory,
-// so the winner's coordinates are one shared load away.  A round is: read
-// the current point from shared memory, update the P distances, warp argmax
-// with shuffles, per-warp partials through shared memory, final argmax in
-// warp 0.  Two __syncthreads per round.  With B=64 clouds only 64 of the
-// 132 SMs are busy; several clouds per block and a warp-level variant are
-// later work.
+// Design: one block per cloud, P points per thread in registers.  P = 8
+// above 512 points; a cloud of up to 512 points runs on one warp with the
+// smallest P of 1, 2, 4, 8, 16 that holds it.  So N=1024 runs on 4 warps,
+// N=512 and N=256 on one: the fastest choices at the path shapes when the
+// redesign was measured (PERF.md, section 6).  Thread t owns the contiguous
+// run [t*P, t*P + P), so "lowest index among equal maxima" is
+// "lowest slot, then lowest lane, then lowest warp".  A round:
+//   1. each thread updates its P distances and takes its first maximum in
+//      a tree of log2(P) levels (not a chain of P compares);
+//   2. the warp argmax: mind >= 0, so its float bits order as unsigned;
+//      __reduce_max_sync (redux.sync) finds the maximum, __ballot_sync +
+//      __ffs the lowest lane holding it;
+//   3. that lane stores (max, index) in shared memory, in a buffer
+//      chosen by the round's parity; one __syncthreads; then EVERY warp
+//      reduces the W partials itself, the same way, so no second barrier
+//      and no broadcast are needed.  Parity double-buffering makes that
+//      safe: a warp can write round j+2's partials into round j's buffer
+//      only after passing round j+1's barrier, which every warp reaches
+//      after its read of round j.
+//   4. the winner's coordinates travel with it: each tree node carries its
+//      point, the warp's winner stores it beside its maximum, and the last
+//      step shuffles it to every lane, so the next round starts without a
+//      dependent load (the cloud lives in registers only).
+// A one-warp cloud needs no barrier at all: one __shfl_sync gives every
+// lane the winner.  Padding points (indices >= N) hold mind = 0 and sit
+// above every real index, so they lose every tie (npoint > N included).
 //
 // Bit-exactness: the distance is written with __fsub_rn/__fmul_rn/__fadd_rn,
 // which are never contracted into FMAs, in the oracle's order.  The build
 // also passes -fmad=false.
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
 
 namespace {
 
-constexpr int kMaxThreads = 512;
-constexpr int kMaxPerThread = 16;  // N <= 8192
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxPoints = 8192;
+
+// the most threads an instantiation runs with: P=16 holds 64 floats of
+// points per thread, so it keeps 128 registers by launching at most 512
+template <int P>
+constexpr int max_threads() { return P >= 16 ? 512 : kMaxThreads; }
 
 __device__ __forceinline__ float sq_dist(float x, float y, float z,
                                          float cx, float cy, float cz) {
@@ -46,106 +67,102 @@ __device__ __forceinline__ float sq_dist(float x, float y, float z,
                    __fmul_rn(dz, dz));
 }
 
-// (v, i) beats (bv, bi) when larger, or equal and at a lower index.
-__device__ __forceinline__ void take_better(float& bv, int& bi, float v, int i) {
-  if (v > bv || (v == bv && i < bi)) {
-    bv = v;
-    bi = i;
-  }
-}
-
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
-    take_better(v, i, ov, oi);
-  }
-}
-
 template <int P>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(max_threads<P>())
 fps_kernel(const float* __restrict__ xyz, int* __restrict__ out, int N, int npoint) {
-  extern __shared__ float s_xyz[];  // [N * 3]
-  __shared__ float s_val[kMaxThreads / 32];
-  __shared__ int s_idx[kMaxThreads / 32];
-  __shared__ int s_cur;
+  __shared__ unsigned s_val[2][32];  // per-warp maxima (float bits), by round parity
+  __shared__ float4 s_win[2][32];    // their points: x, y, z and the index's bits
 
-  const int T = blockDim.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int n_warps = T >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const unsigned full = 0xffffffffu;
   const float* pts = xyz + (size_t)blockIdx.x * N * 3;
   int* row = out + (size_t)blockIdx.x * npoint;
 
-  for (int k = tid; k < 3 * N; k += T) s_xyz[k] = pts[k];
-
+  const int i0 = tid * P;  // this thread's first point
   float px[P], py[P], pz[P], mind[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
-    const int i = tid + p * T;
+    const int i = i0 + p;
     if (i < N) {
       px[p] = pts[3 * i];
       py[p] = pts[3 * i + 1];
       pz[p] = pts[3 * i + 2];
       mind[p] = 1e10f;
-    } else {
+    } else {  // padding: stays at 0 and loses every tie to a real point
       px[p] = py[p] = pz[p] = 0.f;
-      mind[p] = -CUDART_INF_F;  // padding never wins
+      mind[p] = 0.f;
     }
   }
-  if (tid == 0) {
-    s_cur = 0;
-    row[0] = 0;
-  }
-  __syncthreads();
+  if (tid == 0) row[0] = 0;
+  float cx = pts[0], cy = pts[1], cz = pts[2];
 
   for (int j = 1; j < npoint; ++j) {
-    const int cur = s_cur;
-    const float cx = s_xyz[3 * cur], cy = s_xyz[3 * cur + 1], cz = s_xyz[3 * cur + 2];
-    float bv = -CUDART_INF_F;
-    int bi = 0x7fffffff;
+    // the distances' bits, then a tree of (max, slot, point) down to [0]
+    unsigned v[P];
+    int slot[P];
+    float wx[P], wy[P], wz[P];
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      const int i = tid + p * T;
-      if (i < N) {
-        mind[p] = fminf(mind[p], sq_dist(px[p], py[p], pz[p], cx, cy, cz));
-        if (mind[p] > bv) {  // strict: the first (lowest) index keeps a tie
-          bv = mind[p];
-          bi = i;
+      mind[p] = fminf(mind[p], sq_dist(px[p], py[p], pz[p], cx, cy, cz));
+      v[p] = __float_as_uint(mind[p]);
+      slot[p] = p;
+      wx[p] = px[p];
+      wy[p] = py[p];
+      wz[p] = pz[p];
+    }
+    // the thread's first maximum in log2(P) levels: the right half wins
+    // only when strictly larger, so the lower slot keeps a tie
+#pragma unroll
+    for (int s = 1; s < P; s *= 2) {
+#pragma unroll
+      for (int p = 0; p + s < P; p += 2 * s) {
+        if (v[p + s] > v[p]) {
+          v[p] = v[p + s];
+          slot[p] = slot[p + s];
+          wx[p] = wx[p + s];
+          wy[p] = wy[p + s];
+          wz[p] = wz[p + s];
         }
       }
     }
-    warp_argmax(bv, bi);
-    if (lane == 0) {
-      s_val[warp] = bv;
-      s_idx[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < n_warps ? s_val[lane] : -CUDART_INF_F;
-      bi = lane < n_warps ? s_idx[lane] : 0x7fffffff;
-      warp_argmax(bv, bi);
-      if (lane == 0) {
-        s_cur = bi;
-        row[j] = bi;
+    const unsigned wmax = __reduce_max_sync(full, v[0]);
+    const int wlane = __ffs(__ballot_sync(full, v[0] == wmax)) - 1;  // lowest lane
+    int cur;
+    if (n_warps > 1) {  // block-uniform
+      const int par = j & 1;
+      if (lane == wlane) {
+        s_val[par][warp] = wmax;
+        s_win[par][warp] = make_float4(wx[0], wy[0], wz[0], __int_as_float(i0 + slot[0]));
       }
+      __syncthreads();
+      // lanes past the last warp hold 0, which loses ties to lane 0
+      const unsigned w = lane < n_warps ? s_val[par][lane] : 0u;
+      const float4 c = s_win[par][lane < n_warps ? lane : 0];
+      const unsigned bmax = __reduce_max_sync(full, w);
+      const int src = __ffs(__ballot_sync(full, w == bmax)) - 1;
+      cx = __shfl_sync(full, c.x, src);
+      cy = __shfl_sync(full, c.y, src);
+      cz = __shfl_sync(full, c.z, src);
+      cur = __float_as_int(__shfl_sync(full, c.w, src));
+    } else {
+      cx = __shfl_sync(full, wx[0], wlane);
+      cy = __shfl_sync(full, wy[0], wlane);
+      cz = __shfl_sync(full, wz[0], wlane);
+      cur = __shfl_sync(full, i0 + slot[0], wlane);
     }
-    __syncthreads();
+    if (tid == 0) row[j] = cur;
   }
 }
 
 template <int P>
-cudaError_t launch(const float* xyz, int* out, int B, int N, int npoint, int threads,
+cudaError_t launch(const float* xyz, int* out, int B, int N, int npoint,
                    cudaStream_t stream) {
-  const size_t smem = (size_t)N * 3 * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fps_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  fps_kernel<P><<<B, threads, smem, stream>>>(xyz, out, N, npoint);
+  const int threads = ((N + P - 1) / P + 31) / 32 * 32;
+  if (threads > max_threads<P>()) return cudaErrorInvalidValue;
+  fps_kernel<P><<<B, threads, 0, stream>>>(xyz, out, N, npoint);
   return cudaGetLastError();
 }
 
@@ -153,18 +170,21 @@ cudaError_t launch(const float* xyz, int* out, int B, int N, int npoint, int thr
 
 // xyz: [B, N, 3] float32 contiguous; out: [B, npoint] int32.
 // Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int gp_fps(const float* xyz, int* out, int B, int N, int npoint,
-                      void* stream) {
+extern "C" int gp_fps(const float* xyz, int* out, int B, int N, int npoint, void* stream) {
   if (B <= 0 || npoint <= 0) return 0;
-  if (N <= 0 || N > kMaxThreads * kMaxPerThread) return (int)cudaErrorInvalidValue;
-  const int threads = N < kMaxThreads ? ((N + 31) / 32) * 32 : kMaxThreads;
-  const int per = (N + threads - 1) / threads;
+  if (N <= 0 || N > kMaxPoints) return (int)cudaErrorInvalidValue;
+  int P = 8;
+  if (N <= 512) {  // one warp, no barrier: the smallest P that holds the cloud
+    P = 16;
+    while (P > 1 && (P / 2) * 32 >= N) P /= 2;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (per <= 1) e = launch<1>(xyz, out, B, N, npoint, threads, s);
-  else if (per <= 2) e = launch<2>(xyz, out, B, N, npoint, threads, s);
-  else if (per <= 4) e = launch<4>(xyz, out, B, N, npoint, threads, s);
-  else if (per <= 8) e = launch<8>(xyz, out, B, N, npoint, threads, s);
-  else e = launch<16>(xyz, out, B, N, npoint, threads, s);
-  return (int)e;
+  switch (P) {
+    case 1: return (int)launch<1>(xyz, out, B, N, npoint, s);
+    case 2: return (int)launch<2>(xyz, out, B, N, npoint, s);
+    case 4: return (int)launch<4>(xyz, out, B, N, npoint, s);
+    case 8: return (int)launch<8>(xyz, out, B, N, npoint, s);
+    case 16: return (int)launch<16>(xyz, out, B, N, npoint, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

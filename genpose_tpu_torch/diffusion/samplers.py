@@ -23,6 +23,7 @@ import torch
 
 from genpose_tpu_torch.diffusion.sde import SDE
 from genpose_tpu_torch.ops.pose import get_pose_dim, normalize_rotation
+from genpose_tpu_torch.utils.device import resolve_device
 
 
 def _linspace(start: float, stop: float, num: int, device) -> torch.Tensor:
@@ -61,6 +62,20 @@ def _denoise(score_fn, sde: SDE, x: torch.Tensor, step: float) -> torch.Tensor:
     return x + (diffusion ** 2 * grad - drift * x) * step
 
 
+def _sampler_device(device, pts_center: Optional[torch.Tensor],
+                    generator: Optional[torch.Generator]) -> torch.device:
+    """Where a sampler builds its state: ``device`` when given, else
+    ``pts_center``'s device, else ``generator``'s, else the card (raising
+    without one, as every entry point of the port does)."""
+    if device is not None:
+        return resolve_device(device)
+    if pts_center is not None:
+        return pts_center.device
+    if generator is not None:
+        return generator.device
+    return resolve_device("cuda")
+
+
 def _prior(sde: SDE, batch_size: int, pose_mode: str, T: float,
            generator: Optional[torch.Generator], device) -> torch.Tensor:
     return sde.prior((batch_size, get_pose_dim(pose_mode)), T=T, generator=generator,
@@ -70,9 +85,10 @@ def _prior(sde: SDE, batch_size: int, pose_mode: str, T: float,
 def ode_sampler(score_fn: Callable, batch_size: int, sde: SDE, pose_mode: str = "rot_matrix",
                 num_steps: int = 500, T0: Optional[float] = None,
                 pts_center: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None, device="cpu") -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, device=None) -> torch.Tensor:
     """Heun PF-ODE sampler.  Returns x [batch_size, pose_dim] in the camera frame."""
     T = sde.T if T0 is None else T0
+    device = _sampler_device(device, pts_center, generator)
     if pts_center is None:
         pts_center = torch.zeros((batch_size, 3), device=device)
     x = _prior(sde, batch_size, pose_mode, T, generator, device)
@@ -124,7 +140,7 @@ def _rms(v: torch.Tensor) -> torch.Tensor:
 def ode_sampler_adaptive(score_fn: Callable, batch_size: int, sde: SDE,
                          pose_mode: str = "rot_matrix", T0: Optional[float] = None,
                          pts_center: Optional[torch.Tensor] = None, return_stats: bool = False,
-                         generator: Optional[torch.Generator] = None, device="cpu"):
+                         generator: Optional[torch.Generator] = None, device=None):
     """Adaptive PF-ODE sampler: Dormand-Prince RK45 with scipy's controller.
 
     scipy semantics: RMS error norm over the whole flattened batch state with
@@ -139,6 +155,7 @@ def ode_sampler_adaptive(score_fn: Callable, batch_size: int, sde: SDE,
     """
     T = sde.T if T0 is None else T0
     eps, atol, rtol = sde.eps, _ATOL, _RTOL
+    device = _sampler_device(device, pts_center, generator)
     if pts_center is None:
         pts_center = torch.zeros((batch_size, 3), device=device)
     x0 = _prior(sde, batch_size, pose_mode, T, generator, device)

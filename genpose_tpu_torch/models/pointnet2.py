@@ -19,7 +19,7 @@ from torch import nn
 
 from genpose_tpu_torch.models.layers import SharedMLP
 from genpose_tpu_torch.ops.pointcloud import (
-    ball_query,
+    ball_query_msg,
     farthest_point_sample,
     gather_points,
     group_points,
@@ -57,11 +57,8 @@ def sa_geometry(xyz: torch.Tensor, npoint: Optional[int], radii, nsamples) -> Di
                 "grouped_xyz": [xyz[:, None, :, :] for _ in radii]}
     idx = farthest_point_sample(xyz, npoint)
     new_xyz = gather_points(xyz, idx)  # [B, npoint, 3]
-    gidx, grouped_xyz = [], []
-    for radius, nsample in zip(radii, nsamples):
-        gi = ball_query(radius, nsample, xyz, new_xyz)
-        gidx.append(gi)
-        grouped_xyz.append(group_points(xyz, gi) - new_xyz[:, :, None, :])
+    gidx = list(ball_query_msg(radii, nsamples, xyz, new_xyz))  # every radius, one launch
+    grouped_xyz = [group_points(xyz, gi) - new_xyz[:, :, None, :] for gi in gidx]
     return {"new_xyz": new_xyz, "gidx": gidx, "grouped_xyz": grouped_xyz}
 
 

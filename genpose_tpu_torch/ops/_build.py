@@ -104,7 +104,7 @@ def library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gp_fps.argtypes = [p, p, i, i, i, p]
     lib.gp_fps.restype = i
-    lib.gp_ball_query.argtypes = [p, p, p, i, i, i, i, f, p]
+    lib.gp_ball_query.argtypes = [p, p, i, i, i, i, p, p, p, p]
     lib.gp_ball_query.restype = i
     lib.gp_fps_bq_fused.argtypes = [p, p, p, i, i, i, i, p, p, p]
     lib.gp_fps_bq_fused.restype = i

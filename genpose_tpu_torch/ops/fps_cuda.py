@@ -12,7 +12,7 @@ import torch
 
 from genpose_tpu_torch.ops import _build
 
-MAX_POINTS = 8192  # 512 threads x 16 register slots (csrc/fps.cu)
+MAX_POINTS = 8192  # 1024 threads x 8 register slots (csrc/fps.cu)
 
 # Kernel launches since import.  A run that resets it and reads it afterwards
 # shows whether a path went through the kernel.

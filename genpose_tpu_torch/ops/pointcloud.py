@@ -13,12 +13,14 @@ Reference semantics (the upstream CUDA extension):
 
 Each kernel has two versions.  ``*_ref`` is the plain PyTorch version, a
 transcription of the JAX oracle; the dispatchers ``farthest_point_sample``,
-``ball_query`` and ``fps_bq_fused`` send a CPU tensor there and a CUDA
-tensor to the hand-written kernel (``ops/fps_cuda.py``,
+``ball_query_msg`` (every radius of a stage in one launch; ``ball_query``
+is its one-radius case) and ``fps_bq_fused`` send a CPU tensor there and a
+CUDA tensor to the hand-written kernel (``ops/fps_cuda.py``,
 ``ops/ball_query_cuda.py``, ``ops/fps_bq_fused_cuda.py``), which raises if
 it cannot run.  There is no size cutoff and no fallback.  The fused kernel
-is off the serving and training paths (``sa_geometry`` runs the separate
-kernels, as the JAX package does); ``tools/bench_fused_geometry.py`` runs it.
+is off the serving and training paths (``sa_geometry`` runs FPS and one
+multi-radius ball query, as the JAX package runs the separate kernels);
+``tools/bench_fused_geometry.py`` runs it.
 
 Bit-exactness with the JAX oracles rests on the same float32 operation
 order: d^2 = ((dx*dx + dy*dy) + dz*dz), separate multiplies and adds, and
@@ -126,16 +128,32 @@ def ball_query_ref(radius: float, nsample: int, xyz: torch.Tensor,
     return torch.where(s_arr < cnt, sel, pad).to(torch.int32)
 
 
-def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
-               new_xyz: torch.Tensor) -> torch.Tensor:
-    """Ball query: the CUDA kernel for CUDA tensors, the plain version on the CPU."""
+def ball_query_msg_ref(radii: Sequence[float], nsamples: Sequence[int], xyz: torch.Tensor,
+                       new_xyz: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Plain multi-radius ball query: one :func:`ball_query_ref` per radius.
+    Returns (idx_k [B, M, nsamples[k]] int32 for each radius)."""
+    if not radii or len(radii) != len(nsamples):
+        raise ValueError(f"need one nsample per radius, got {radii} and {nsamples}")
+    return tuple(ball_query_ref(r, s, xyz, new_xyz) for r, s in zip(radii, nsamples))
+
+
+def ball_query_msg(radii: Sequence[float], nsamples: Sequence[int], xyz: torch.Tensor,
+                   new_xyz: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Ball query at every radius of an MSG stage: one launch of the CUDA
+    kernel for CUDA tensors, the plain version on the CPU."""
     if xyz.is_cuda:
         from genpose_tpu_torch.ops.ball_query_cuda import ball_query_cuda
 
-        return ball_query_cuda(radius, nsample, xyz, new_xyz)
+        return ball_query_cuda(radii, nsamples, xyz, new_xyz)
     if xyz.device.type != "cpu":
         raise ValueError(f"no ball query for device {xyz.device}")
-    return ball_query_ref(radius, nsample, xyz, new_xyz)
+    return ball_query_msg_ref(radii, nsamples, xyz, new_xyz)
+
+
+def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
+               new_xyz: torch.Tensor) -> torch.Tensor:
+    """Ball query at one radius (:func:`ball_query_msg` with R = 1)."""
+    return ball_query_msg((radius,), (nsample,), xyz, new_xyz)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -149,11 +167,8 @@ def fps_bq_fused_ref(xyz: torch.Tensor, npoint: int, radii: Sequence[float],
 
     xyz [B, N, 3] float32 -> (fps_idx [B, npoint] int32,
     (bq_idx_k [B, npoint, nsamples[k]] int32 for each radius))."""
-    if not radii or len(radii) != len(nsamples):
-        raise ValueError(f"need one nsample per radius, got {radii} and {nsamples}")
     idx = farthest_point_sample_ref(xyz, npoint)
-    centers = gather_points(xyz, idx)
-    return idx, tuple(ball_query_ref(r, s, xyz, centers) for r, s in zip(radii, nsamples))
+    return idx, ball_query_msg_ref(radii, nsamples, xyz, gather_points(xyz, idx))
 
 
 def fps_bq_fused(xyz: torch.Tensor, npoint: int, radii: Sequence[float],

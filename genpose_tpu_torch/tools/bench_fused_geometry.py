@@ -2,8 +2,8 @@
 
 Counterpart of ``tools/bench_fused_geometry.py``.  At each MSG stage shape of
 the ``light`` encoder, and over the whole three-stage geometry chain, it
-times the composition the encoder runs (FPS -> gather centers -> one ball
-query per radius) against ``fps_bq_fused`` (FPS and every radius's ball
+times the composition the encoder runs (FPS -> gather centers -> one
+ball-query launch for both radii) against ``fps_bq_fused`` (FPS and every radius's ball
 query in one kernel, then the same gather, which the SharedMLP's relative
 coordinates still need).  Times are CUDA events over back-to-back chains,
 after a warm-up.
@@ -28,7 +28,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from genpose_tpu_torch.ops.pointcloud import (
-    ball_query,
+    ball_query_msg,
     farthest_point_sample,
     fps_bq_fused,
     gather_points,
@@ -44,10 +44,11 @@ STAGES = (
 
 
 def sep(x: torch.Tensor, M: int, radii, nsamples):
-    """The separate kernels: FPS, gather, one ball query per radius."""
+    """The separate kernels, as ``models/pointnet2.py::sa_geometry`` runs
+    them: FPS, gather, one ball query for every radius."""
     fi = farthest_point_sample(x, M)
     centers = gather_points(x, fi)
-    return fi, centers, tuple(ball_query(r, s, x, centers) for r, s in zip(radii, nsamples))
+    return fi, centers, ball_query_msg(radii, nsamples, x, centers)
 
 
 def fused(x: torch.Tensor, M: int, radii, nsamples):

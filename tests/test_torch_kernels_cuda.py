@@ -30,13 +30,27 @@ def _cloud(dev, B, N, seed):
     return torch.randn(B, N, 3, device=dev, generator=g) * 0.1
 
 
-@pytest.mark.parametrize("N,npoint", [(1024, 512), (512, 256), (256, 128), (777, 300),
-                                      (64, 512), (5000, 64)])
-def test_fps_kernel_equals_plain(dev, N, npoint):
-    xyz = _cloud(dev, 4, N, seed=N)
+@pytest.mark.parametrize("B,N,npoint", [
+    (4, 1024, 512), (4, 512, 256), (4, 256, 128), (192, 1024, 512), (4, 777, 300),
+    (4, 64, 512), (4, 5000, 64), (3, 1, 8), (3, 31, 40), (3, 33, 40), (2, 8192, 64)])
+def test_fps_kernel_equals_plain(dev, B, N, npoint):
+    """The path shapes (B=4, and B=192 as in training), and N = 1, 31, 33,
+    8192, which cross each threads-per-cloud choice and its padding."""
+    xyz = _cloud(dev, B, N, seed=N)
     got = fps_mod.fps_cuda(xyz, npoint)
     torch.cuda.synchronize()
     assert torch.equal(got, pc.farthest_point_sample_ref(xyz, npoint))
+
+
+@pytest.mark.parametrize("N", [32, 64, 65, 128, 129, 256, 257, 512, 513, 1024])
+def test_fps_kernel_every_points_per_thread(dev, N):
+    """Each edge of the kernel's choice of points per thread (one warp with
+    1, 2, 4, 8 or 16 up to N = 512, then 8 on several warps), with npoint
+    past N so that the padding meets the tie rule."""
+    xyz = _cloud(dev, 3, N, seed=N + 1)
+    got = fps_mod.fps_cuda(xyz, N + 20)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pc.farthest_point_sample_ref(xyz, N + 20))
 
 
 def test_fps_kernel_ties(dev):
@@ -50,11 +64,56 @@ def test_fps_kernel_ties(dev):
     (512, 256, 0.08, 32), (256, 128, 0.08, 16), (256, 128, 0.16, 32),
     (100, 9, 0.3, 16), (257, 40, 0.002, 4)])
 def test_ball_query_kernel_equals_plain(dev, N, M, radius, nsample):
+    """One radius (R = 1) at each stage's radii and at odd shapes."""
     xyz = _cloud(dev, 4, N, seed=M)
     centers = pc.gather_points(xyz, pc.farthest_point_sample_ref(xyz, M))
-    got = bq_mod.ball_query_cuda(radius, nsample, xyz, centers)
+    (got,) = bq_mod.ball_query_cuda((radius,), (nsample,), xyz, centers)
     torch.cuda.synchronize()
     assert torch.equal(got, pc.ball_query_ref(radius, nsample, xyz, centers))
+
+
+@pytest.mark.parametrize("B,N,M,radii,nsamples", [
+    (64, 1024, 512, (0.02, 0.04), (16, 32)), (64, 512, 256, (0.04, 0.08), (16, 32)),
+    (64, 256, 128, (0.08, 0.16), (16, 32)), (192, 1024, 512, (0.02, 0.04), (16, 32)),
+    (4, 777, 77, (0.3,), (32,)), (4, 512, 100, (0.05, 0.3, 0.0), (4, 32, 2)),
+    (2, 4096, 300, (0.01, 0.05), (7, 40)), (3, 64, 20, (0.1, 0.2, 0.3, 1.0), (0, 5, 9, 64))])
+def test_ball_query_msg_kernel_equals_plain(dev, B, N, M, radii, nsamples):
+    """Every radius of a stage in one launch: the three stage shapes (B=64
+    and B=192), R = 1, R = 3 with r = 0 (every ball empty), N = 4096, and
+    R = 4 with an empty row (S = 0)."""
+    xyz = _cloud(dev, B, N, seed=N + M)
+    centers = pc.gather_points(xyz, pc.farthest_point_sample_ref(xyz, M))
+    launches = bq_mod.launches
+    got = bq_mod.ball_query_cuda(radii, nsamples, xyz, centers)
+    torch.cuda.synchronize()
+    assert bq_mod.launches == launches + 1
+    for g, w in zip(got, pc.ball_query_msg_ref(radii, nsamples, xyz, centers)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("B", [98, 99])
+def test_ball_query_msg_kernel_every_lanes_per_center(dev, B):
+    """Both of the kernel's choices of lanes per center, on either side of
+    B * M = 32768 (8 lanes below, 1 from there on), with a center count
+    that leaves a block part-empty."""
+    xyz = _cloud(dev, B, 1024, seed=B)
+    centers = pc.gather_points(xyz, pc.farthest_point_sample_ref(xyz, 333))
+    got = bq_mod.ball_query_cuda((0.02, 0.04), (16, 32), xyz, centers)
+    torch.cuda.synchronize()
+    for g, w in zip(got, pc.ball_query_msg_ref((0.02, 0.04), (16, 32), xyz, centers)):
+        assert torch.equal(g, w)
+
+
+def test_ball_query_msg_kernel_boundary_and_empty_balls(dev):
+    """The r=0.1 and r=0.5 boundary points, and balls far from every point."""
+    edge = torch.tensor([[[0.09998, 0.002, 0.0], [0.05, 0, 0], [0.5, 0, 0], [0.49, 0, 0]]],
+                        device=dev)
+    origin = torch.zeros(1, 1, 3, device=dev)
+    got = bq_mod.ball_query_cuda((0.1, 0.5), (4, 4), edge, origin)
+    assert [g[0, 0].tolist() for g in got] == [[1, 1, 1, 1], [0, 1, 3, 0]]
+    xyz = _cloud(dev, 5, 777, seed=3)
+    got = bq_mod.ball_query_cuda((0.01, 0.1), (8, 16), xyz, xyz[:, :40] + 5.0)
+    assert not any(g.any() for g in got)
 
 
 @pytest.mark.parametrize("B,N,M,radii,nsamples", [
@@ -89,6 +148,8 @@ def test_dispatchers_launch_the_kernels(dev):
     xyz = _cloud(dev, 2, 128, seed=1)
     f0, b0, u0 = fps_mod.launches, bq_mod.launches, fused_mod.launches
     idx = pc.farthest_point_sample(xyz, 32)
-    pc.ball_query(0.1, 8, xyz, pc.gather_points(xyz, idx))
+    pc.ball_query_msg((0.1, 0.2), (8, 16), xyz, pc.gather_points(xyz, idx))  # one launch
     pc.fps_bq_fused(xyz, 32, (0.1,), (8,))
     assert (fps_mod.launches - f0, bq_mod.launches - b0, fused_mod.launches - u0) == (1, 1, 1)
+    pc.ball_query(0.1, 8, xyz, pc.gather_points(xyz, idx))
+    assert bq_mod.launches - b0 == 2

@@ -129,7 +129,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         fps_cuda(xyz, 4)
     with pytest.raises(ValueError):
-        ball_query_cuda(0.1, 4, xyz, xyz)
+        ball_query_cuda((0.1,), (4,), xyz, xyz)
 
 
 def test_gather_and_group_match_jax():

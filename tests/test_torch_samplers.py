@@ -126,3 +126,29 @@ def test_aggregate_hypotheses_matches_jax():
     sign = np.sign(np.sum(tavg[:, :4] * javg[:, :4], axis=1, keepdims=True))
     np.testing.assert_allclose(tavg[:, :4] * sign, javg[:, :4], atol=1e-5)
     np.testing.assert_allclose(np.linalg.norm(tavg[:, :4], axis=1), 1.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("sampler", ["ode", "ode_adaptive"])
+def test_samplers_build_their_state_where_their_inputs_are(sampler, monkeypatch):
+    """With no ``device``, a sampler works on ``pts_center``'s device, else
+    on ``generator``'s; with neither it asks for the card, which raises here
+    (no silent fallback to the CPU)."""
+    from genpose_tpu_torch.diffusion.sde import init_sde
+
+    sde = init_sde("ve")
+    seen = []
+
+    def score_fn(x, t):
+        seen.append(x.device)
+        return torch.zeros_like(x)
+
+    run = {"ode": lambda **kw: ode_sampler(score_fn, 4, sde, num_steps=3, T0=T0, **kw),
+           "ode_adaptive": lambda **kw: ode_sampler_adaptive(score_fn, 4, sde, T0=T0, **kw)}
+    out = run[sampler](pts_center=torch.zeros(4, 3))
+    assert out.device.type == "cpu" and out.shape == (4, 9) and torch.isfinite(out).all()
+    out = run[sampler](generator=torch.Generator().manual_seed(0))
+    assert out.device.type == "cpu" and torch.isfinite(out).all()
+    assert seen and all(d.type == "cpu" for d in seen)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run[sampler]()
