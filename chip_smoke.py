@@ -14,15 +14,16 @@ non-zero and prints no result line):
    shapes the paths give them (B=64 clouds of 1024 points, the serving
    batch, and B=192, the training batch: FPS 1024->512, 512->256, 256->128
    and one ball-query launch for both radii of each stage; the fused FPS +
-   ball query at the three stages at B=64, also against the separate
-   kernels), plus ties, an unaligned N, npoint > N, empty balls,
-   exact-boundary cases, a three-radius ball query with r=0 and the JAX
-   fused-kernel test's cases; time each kernel and its plain version at
-   B=64 with CUDA events and by ``torch.profiler``;
+   ball query at the three stages at B=64 and B=192, also against the
+   separate kernels), plus ties, an unaligned N, npoint > N, empty balls,
+   exact-boundary cases, a three-radius ball query with r=0, eight radii
+   and the JAX fused-kernel test's cases; time each kernel and its plain
+   version at B=64 with CUDA events and by ``torch.profiler`` (device ms,
+   and for FPS and the fused kernel us per FPS round);
 4. the fused kernel's path: the three-stage geometry chain of
    ``tools/bench_fused_geometry.py``, once per arm with the launch counts
    read around it, then both arms timed (the fused kernel's win or loss)
-   and the fused kernel's device time in one chain profiled;
+   and each arm's kernels' device time in one chain profiled;
 5. drive the serving path at the released model's full width
    (``InferencePipeline``: bs=64, K=50, N=1024, light PointNet++, VE SDE,
    Rx_Ry_and_T heads) with seeded random non-zero weights, once with the
@@ -187,6 +188,11 @@ def device_ms(fn, iters: int, tag: str):
     return None
 
 
+def per_round(dev_ms, npoint: int):
+    """Microseconds per FPS round (npoint - 1 rounds a cloud), or None."""
+    return None if dev_ms is None else dev_ms * 1e3 / (npoint - 1)
+
+
 def _flat(x):
     """A kernel's result as one index vector: a tensor, or nested tuples of them."""
     if isinstance(x, torch.Tensor):
@@ -226,8 +232,7 @@ def check_kernels(dev):
         # per point per round: 3 sub, 3 mul, 2 add, 1 min, 1 compare
         fps_rows.append(row(f"B{B} N{n} npoint{npoint}", ms, plain,
                             B * n * 12 + B * npoint * 4, B * (npoint - 1) * n * 10,
-                            device_ms=dev_ms,
-                            us_per_round=None if dev_ms is None else dev_ms * 1e3 / (npoint - 1)))
+                            device_ms=dev_ms, us_per_round=per_round(dev_ms, npoint)))
         centers = pc.gather_points(xyz, got)
         # ball query: both radii of the stage in one launch
         got_bq = ball_query_cuda(radii, BQ_NSAMPLE, xyz, centers)
@@ -256,27 +261,36 @@ def check_kernels(dev):
              f"fused vs plain N={n} npoint={npoint}")
         same(got_f, (got, got_bq), f"fused vs separate kernels N={n} npoint={npoint}")
         ms = cuda_ms(lambda: fps_bq_fused_cuda(xyz, npoint, radii, BQ_NSAMPLE), 50)
+        dev_ms = device_ms(lambda: fps_bq_fused_cuda(xyz, npoint, radii, BQ_NSAMPLE), 20,
+                           "fps_bq_fused_kernel")
         plain = cuda_ms(lambda: pc.fps_bq_fused_ref(xyz, npoint, radii, BQ_NSAMPLE), 3)
+        fps_round = fps_rows[-1]["us_per_round"]
+        us_round = per_round(dev_ms, npoint)
         # each input and output once; the FPS rounds' distance rows (one more,
         # at 8 operations a point, for the last center) and one compare per
         # examined (center, point) pair and radius: the distance is shared
         n_bytes = B * n * 12 + B * npoint * 4 + B * npoint * sum(BQ_NSAMPLE) * 4
         n_ops = B * (npoint - 1) * n * 10 + B * n * 8 + sum(per_radius)
         fused_rows.append(row(f"B{B} N{n} npoint{npoint} r{radii} S{BQ_NSAMPLE}", ms, plain,
-                              n_bytes, n_ops))
+                              n_bytes, n_ops, device_ms=dev_ms, us_per_round=us_round,
+                              round_over_fps=None if None in (us_round, fps_round)
+                              else us_round / fps_round))
         xyz = centers
 
     # the training batch at each stage, where the kernels choose differently
-    # (one lane per ball-query center at every stage)
+    # (one lane per ball-query center at every stage); the fused kernel
+    # against the same plain results
     train = object_clouds(gen, B_TRAIN, N_POINTS, dev)
     train = train - train.mean(dim=1, keepdim=True)
     for (n, npoint), radii in zip(FPS_SHAPES, BQ_RADII):
-        idx = fps_cuda(train, npoint)
-        same(idx, pc.farthest_point_sample_ref(train, npoint), f"FPS B={B_TRAIN} N={n}")
-        centers = pc.gather_points(train, idx)
-        same(ball_query_cuda(radii, BQ_NSAMPLE, train, centers),
-             pc.ball_query_msg_ref(radii, BQ_NSAMPLE, train, centers),
+        want_idx = pc.farthest_point_sample_ref(train, npoint)
+        same(fps_cuda(train, npoint), want_idx, f"FPS B={B_TRAIN} N={n}")
+        centers = pc.gather_points(train, want_idx)
+        want_bq = pc.ball_query_msg_ref(radii, BQ_NSAMPLE, train, centers)
+        same(ball_query_cuda(radii, BQ_NSAMPLE, train, centers), want_bq,
              f"ball query B={B_TRAIN} N={n} M={npoint} r={radii}")
+        same(fps_bq_fused_cuda(train, npoint, radii, BQ_NSAMPLE), (want_idx, want_bq),
+             f"fused vs plain B={B_TRAIN} N={n} npoint={npoint}")
         train = centers
 
     # ties, unaligned N, npoint > N, exact boundary, empty balls, three
@@ -317,6 +331,7 @@ def check_kernels(dev):
                       lambda p=pts, m=m, r=radii, s=nsamples: pc.fps_bq_fused_ref(p, m, r, s)))
     # npoint > N, and r=0: every ball empty (a center is a point of its cloud)
     small = odd[:, :64].contiguous()
+    radii8, nsamples8 = (0.01, 0.02, 0.04, 0.08, 0.16, 0.3, 0.0, 1.0), (3, 16, 32, 5, 33, 64, 2, 7)
     cases += [
         ("fused npoint > N, empty balls",
          lambda: fps_bq_fused_cuda(small, 512, (0.05, 1.0, 0.0), (4, 40, 2)),
@@ -324,12 +339,17 @@ def check_kernels(dev):
         ("fused boundary r=0.1", lambda: fps_bq_fused_cuda(torch.cat([origin, edge], 1), 3,
                                                           (0.1, 0.5), (4, 4)),
          lambda: pc.fps_bq_fused_ref(torch.cat([origin, edge], 1), 3, (0.1, 0.5), (4, 4))),
+        ("fused N=777, eight radii", lambda: fps_bq_fused_cuda(odd, 100, radii8, nsamples8),
+         lambda: pc.fps_bq_fused_ref(odd, 100, radii8, nsamples8)),
+        ("fused N=33, npoint=1", lambda: fps_bq_fused_cuda(odd[:, :33].contiguous(), 1,
+                                                          (0.05, 0.3), (4, 40)),
+         lambda: pc.fps_bq_fused_ref(odd[:, :33].contiguous(), 1, (0.05, 0.3), (4, 40))),
     ]
     for name, kern, plain in cases:
         same(kern(), plain(), name)
     print(f"kernels equal their plain versions at the 3 FPS and 3 two-radius ball-query "
-          f"stage shapes at B={B} and at B={B_TRAIN}, the fused kernel at the 3 stage shapes, "
-          f"and {len(cases)} edge cases", flush=True)
+          f"stage shapes at B={B} and at B={B_TRAIN}, the fused kernel at the 3 stage shapes "
+          f"at both batches, and {len(cases)} edge cases", flush=True)
     return fps_rows, bq_rows, fused_rows, err
 
 
@@ -492,22 +512,28 @@ def fused_geometry_path(dev):
         if not (torch.equal(fi_f, fi_s) and all(torch.equal(a, b) for a, b in zip(bq_f, bq_s))):
             raise AssertionError("the fused and separate arms of the chain disagree")
     times = bench.measure(pts, iters=16)
-    # the fused kernel's device time in one chain, by the profiler
+    # each arm's kernels' device time in one chain, by the profiler
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        bench.chain(pts, True)
-        torch.cuda.synchronize()
-    profiled = sum(e.self_device_time_total for e in prof.key_averages()
-                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-                   and "fps_bq_fused_kernel" in e.key) / 1e3
+    profiled = {}
+    for use_fused, tags in ((True, ("fps_bq_fused_kernel",)),
+                            (False, ("fps_kernel", "ball_query_kernel"))):
+        with torch.profiler.profile(activities=acts) as prof:
+            bench.chain(pts, use_fused)
+            torch.cuda.synchronize()
+        profiled[use_fused] = sum(
+            e.self_device_time_total for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+            and any(t in e.key for t in tags)) / 1e3
+    times["chain_fused_device_ms"] = profiled[True] or None
+    times["chain_separate_device_ms"] = profiled[False] or None
     verdict = "win" if times["chain_fused_win_pct"] > 0 else "loss"
     print(f"fused geometry chain (B={B}, 3 stages): separate {times['chain_separate_ms']:.4f} ms, "
           f"fused {times['chain_fused_ms']:.4f} ms: a {verdict} of "
           f"{abs(times['chain_fused_win_pct']):.2f}% for the fused kernel; per stage "
           + ", ".join(f"{k} {v:.4f}" for k, v in times.items() if k.startswith("s"))
-          + f"; fused kernel device time {profiled:.4f} ms per chain (profiled); {card_line()}",
-          flush=True)
-    return launches[True]["fps_bq_fused"], times, profiled or None
+          + f"; device time per chain (profiled): fused kernel {profiled[True]:.4f} ms, "
+          f"FPS + ball query {profiled[False]:.4f} ms; {card_line()}", flush=True)
+    return launches[True]["fps_bq_fused"], times, profiled[True] or None
 
 
 def _raw_batches(rng, n, bs, n_pts):

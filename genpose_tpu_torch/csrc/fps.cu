@@ -19,34 +19,15 @@
 // above 512 points; a cloud of up to 512 points runs on one warp with the
 // smallest P of 1, 2, 4, 8, 16 that holds it.  So N=1024 runs on 4 warps,
 // N=512 and N=256 on one: the fastest choices at the path shapes when the
-// redesign was measured (PERF.md, section 6).  Thread t owns the contiguous
-// run [t*P, t*P + P), so "lowest index among equal maxima" is
-// "lowest slot, then lowest lane, then lowest warp".  A round:
-//   1. each thread updates its P distances and takes its first maximum in
-//      a tree of log2(P) levels (not a chain of P compares);
-//   2. the warp argmax: mind >= 0, so its float bits order as unsigned;
-//      __reduce_max_sync (redux.sync) finds the maximum, __ballot_sync +
-//      __ffs the lowest lane holding it;
-//   3. that lane stores (max, index) in shared memory, in a buffer
-//      chosen by the round's parity; one __syncthreads; then EVERY warp
-//      reduces the W partials itself, the same way, so no second barrier
-//      and no broadcast are needed.  Parity double-buffering makes that
-//      safe: a warp can write round j+2's partials into round j's buffer
-//      only after passing round j+1's barrier, which every warp reaches
-//      after its read of round j.
-//   4. the winner's coordinates travel with it: each tree node carries its
-//      point, the warp's winner stores it beside its maximum, and the last
-//      step shuffles it to every lane, so the next round starts without a
-//      dependent load (the cloud lives in registers only).
-// A one-warp cloud needs no barrier at all: one __shfl_sync gives every
-// lane the winner.  Padding points (indices >= N) hold mind = 0 and sit
-// above every real index, so they lose every tie (npoint > N included).
-//
-// Bit-exactness: the distance is written with __fsub_rn/__fmul_rn/__fadd_rn,
-// which are never contracted into FMAs, in the oracle's order.  The build
-// also passes -fmad=false.
+// redesign was measured (PERF.md, section 6).  The round itself (contiguous
+// ownership, one barrier per round with parity-double-buffered warp
+// partials, the argmax by __reduce_max_sync + ballot on the distance bits,
+// the winner's coordinates carried through the reduction, no barrier on one
+// warp) is csrc/fps_round.cuh, which csrc/fps_bq_fused.cu shares.
 
 #include <cuda_runtime.h>
+
+#include "fps_round.cuh"
 
 namespace {
 
@@ -58,101 +39,24 @@ constexpr int kMaxPoints = 8192;
 template <int P>
 constexpr int max_threads() { return P >= 16 ? 512 : kMaxThreads; }
 
-__device__ __forceinline__ float sq_dist(float x, float y, float z,
-                                         float cx, float cy, float cz) {
-  const float dx = __fsub_rn(x, cx);
-  const float dy = __fsub_rn(y, cy);
-  const float dz = __fsub_rn(z, cz);
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
-}
-
 template <int P>
 __global__ void __launch_bounds__(max_threads<P>())
 fps_kernel(const float* __restrict__ xyz, int* __restrict__ out, int N, int npoint) {
-  __shared__ unsigned s_val[2][32];  // per-warp maxima (float bits), by round parity
-  __shared__ float4 s_win[2][32];    // their points: x, y, z and the index's bits
+  __shared__ fps_round::Partials sh;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const unsigned full = 0xffffffffu;
   const float* pts = xyz + (size_t)blockIdx.x * N * 3;
   int* row = out + (size_t)blockIdx.x * npoint;
 
-  const int i0 = tid * P;  // this thread's first point
-  float px[P], py[P], pz[P], mind[P];
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    const int i = i0 + p;
-    if (i < N) {
-      px[p] = pts[3 * i];
-      py[p] = pts[3 * i + 1];
-      pz[p] = pts[3 * i + 2];
-      mind[p] = 1e10f;
-    } else {  // padding: stays at 0 and loses every tie to a real point
-      px[p] = py[p] = pz[p] = 0.f;
-      mind[p] = 0.f;
-    }
-  }
+  fps_round::Points<P> cloud;
+  cloud.load(pts, N, tid);
   if (tid == 0) row[0] = 0;
   float cx = pts[0], cy = pts[1], cz = pts[2];
 
   for (int j = 1; j < npoint; ++j) {
-    // the distances' bits, then a tree of (max, slot, point) down to [0]
-    unsigned v[P];
-    int slot[P];
-    float wx[P], wy[P], wz[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      mind[p] = fminf(mind[p], sq_dist(px[p], py[p], pz[p], cx, cy, cz));
-      v[p] = __float_as_uint(mind[p]);
-      slot[p] = p;
-      wx[p] = px[p];
-      wy[p] = py[p];
-      wz[p] = pz[p];
-    }
-    // the thread's first maximum in log2(P) levels: the right half wins
-    // only when strictly larger, so the lower slot keeps a tie
-#pragma unroll
-    for (int s = 1; s < P; s *= 2) {
-#pragma unroll
-      for (int p = 0; p + s < P; p += 2 * s) {
-        if (v[p + s] > v[p]) {
-          v[p] = v[p + s];
-          slot[p] = slot[p + s];
-          wx[p] = wx[p + s];
-          wy[p] = wy[p + s];
-          wz[p] = wz[p + s];
-        }
-      }
-    }
-    const unsigned wmax = __reduce_max_sync(full, v[0]);
-    const int wlane = __ffs(__ballot_sync(full, v[0] == wmax)) - 1;  // lowest lane
-    int cur;
-    if (n_warps > 1) {  // block-uniform
-      const int par = j & 1;
-      if (lane == wlane) {
-        s_val[par][warp] = wmax;
-        s_win[par][warp] = make_float4(wx[0], wy[0], wz[0], __int_as_float(i0 + slot[0]));
-      }
-      __syncthreads();
-      // lanes past the last warp hold 0, which loses ties to lane 0
-      const unsigned w = lane < n_warps ? s_val[par][lane] : 0u;
-      const float4 c = s_win[par][lane < n_warps ? lane : 0];
-      const unsigned bmax = __reduce_max_sync(full, w);
-      const int src = __ffs(__ballot_sync(full, w == bmax)) - 1;
-      cx = __shfl_sync(full, c.x, src);
-      cy = __shfl_sync(full, c.y, src);
-      cz = __shfl_sync(full, c.z, src);
-      cur = __float_as_int(__shfl_sync(full, c.w, src));
-    } else {
-      cx = __shfl_sync(full, wx[0], wlane);
-      cy = __shfl_sync(full, wy[0], wlane);
-      cz = __shfl_sync(full, wz[0], wlane);
-      cur = __shfl_sync(full, i0 + slot[0], wlane);
-    }
+    float d[P];
+    cloud.update(cx, cy, cz, d);
+    const int cur = cloud.argmax(j, tid & 31, tid >> 5, blockDim.x >> 5, sh, cx, cy, cz);
     if (tid == 0) row[j] = cur;
   }
 }

@@ -16,42 +16,77 @@
 //
 // What bounds it on this card: latency, as for FPS.  The npoint rounds are
 // a sequential chain (each center is the argmax of distances to the
-// previous ones), and the per-round compaction of the ball-query hits sits
-// inside that chain.  Bytes (a 1024-point cloud is 12 KB, the index rows
-// ~96 bytes per center and radius) and arithmetic (~10 flops per point per
-// round, one compare per point and radius) are both far below what the card
-// does in the time a round's barriers take.
+// previous ones).  Bytes (a 1024-point cloud is 12 KB, the index rows ~96
+// bytes per center and radius) and arithmetic (~10 flops per point per
+// round, one compare per point and radius) are both far below what the
+// card does in the time a round's reduction takes.  So nothing but the FPS
+// round may sit on the chain: the ball query, which no later center needs,
+// runs beside it in other warps.
 //
-// Design, on csrc/fps.cu's: one block per cloud, point i in thread i % T,
-// slot i / T, so a thread's slots hold increasing indices and the index
-// order of the whole cloud is (slot, warp, lane).  Round j computes the
-// distance row of center j in registers.  Before the round's first barrier
-// every warp stores, for each radius and slot, the __ballot_sync mask of
-// its hits in shared memory, beside its FPS argmax partial.  After the
-// barrier every warp loads the (at most 16) masks of a (radius, slot), one
-// per lane, and a shuffle scan gives the hits of the warps before each one
-// (an exclusive prefix): each thread writes its hit to that place, slot
-// after slot, until S_k hits are placed.  The first hit, which pads a short
-// row, is read off the same masks.  So the compaction adds no barrier: a
-// round has the two of csrc/fps.cu (the second keeps the masks and the next
-// center from being overwritten while read).  One launch covers every
-// radius; the rows of all radii lie side by side in one [B, npoint, sum S_k]
-// buffer.
+// Design: one block per cloud, two roles.
+//   * Producer warps run csrc/fps.cu's round (csrc/fps_round.cuh): P
+//     contiguous points per lane in registers, one barrier per round (named
+//     barrier 1 over the producers only; none on one warp), the argmax by
+//     redux.sync + ballot.  Round j computes the distance row d of center
+//     j-1 and, besides lowering mind with it, stores it into a slot of a
+//     ring in shared memory: P floats a lane, in vector stores.  A last pass
+//     without FPS stores the row of the final center (with npoint = 1, only
+//     that).  Comparing and packing bits in the round instead lengthened it
+//     the most after the hand-off (PERF.md, section 6): a one-warp producer
+//     issues every compare itself, in order.
+//   * Consumer warps, C per radius taking rows in turn, turn a distance row
+//     into its index row.  Each lane takes a contiguous span of the row, L =
+//     min(ceil(N/32) rounded up to 4, 32) points, in 128-bit loads, and
+//     compares them with r2_k itself (the ball-query compare is on d, never
+//     on mind): its span's hit bits, in registers.  A warp exclusive scan of
+//     the spans' popcounts (ballots of the counts' bits) gives each lane the
+//     rank of its first hit, and each lane writes its hits at their ranks
+//     below S_k.  The first hit (ballot + __ffs over the non-empty spans)
+//     pads a short row; an empty ball gives zeros.  Short spans keep a
+//     lane's serial part short where balls are dense (8 points a lane at
+//     N = 256).  A consumer warp takes longer for a row than a producer
+//     round (a latency-bound chain of loads, votes, popcounts and bit
+//     scans), hence C of them.  Beside a one-warp producer, no consumer
+//     shares its SM sub-partition.  The ring's 16-byte chunks are swizzled,
+//     so the producers' stores and the consumers' loads are free of bank
+//     conflicts.
+//   * The hand-off: per ring slot a `full` mbarrier (one arrival, producer
+//     thread 0's, after the producers' barrier of the round that wrote the
+//     row), on which consumers wait suspended.  The way back is a progress
+//     word per consumer warp, the next row it will take, stored with release
+//     semantics after its reads of a row; producers read the words with
+//     acquire loads, one per lane, and only when they wrap the ring, once
+//     per half ring (see wait_half_free).  An `empty` mbarrier per slot in
+//     their place made the multi-warp round longer (PERF.md, section 6):
+//     even a wait on a completed phase is slower than an acquire load, and
+//     a check needed one per consumer warp of a radius.  Every wait spins
+//     for at most 2^31 cycles (~1 s) and then traps, so a protocol fault is
+//     a CUDA error, not a hang.
+// The producers' shape, the consumers per radius and the ring's depth follow
+// from N and R alone.  One launch covers every radius; the rows of all radii
+// lie side by side in one [B, npoint, sum S_k] buffer.
 //
-// Bit-exactness: the distance is written with __fsub_rn/__fmul_rn/__fadd_rn,
-// never contracted into FMAs, in the oracles' order; r2_k arrives already
-// rounded to float32 from the double-precision square of the radius.  The
-// build also passes -fmad=false.
+// Bit-exactness: the distance is csrc/fps_round.cuh's (__fsub_rn/__fmul_rn/
+// __fadd_rn in the oracles' order); r2_k arrives already rounded to float32
+// from the double-precision square of the radius.  The build also passes
+// -fmad=false.
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
+#include <stdint.h>
+
+#include "fps_round.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 512;
-constexpr int kMaxWarps = kMaxThreads / 32;
-constexpr int kMaxPerThread = 16;  // N <= 8192
+// 4096 points (as csrc/ball_query.cu) keep P = 8 on at most 16 producer
+// warps.  More would need P = 16 on 16 warps beside the consumers: 17 warps
+// or more leave a thread 96 registers, and ptxas spilled that round there.
+constexpr int kMaxPoints = 4096;
 constexpr int kMaxRadii = 8;
+constexpr int kMaxDepth = 16;            // ring slots, 8 above 2048 points
+constexpr int kRingBytes = 128 * 1024;
+constexpr int kConsumersPerRadius = 4;
+constexpr unsigned kSpinCycles = 1u << 31;  // a wait this long is a protocol fault
 
 struct Balls {
   float r2[kMaxRadii];  // squared radii, float32
@@ -61,171 +96,311 @@ struct Balls {
   int S_total;          // sum of S
 };
 
-__device__ __forceinline__ float sq_dist(float x, float y, float z,
-                                         float cx, float cy, float cz) {
-  const float dx = __fsub_rn(x, cx);
-  const float dy = __fsub_rn(y, cy);
-  const float dz = __fsub_rn(z, cz);
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
+// The ring: `depth` slots (a power of two) of `row` floats each.
+struct Ring {
+  int row;        // floats of a slot: the producers' P * lanes, rounded up to 128
+  int log_depth;  // log2 of the slots
+};
+
+// the most threads a launch takes, which sets the register cap (in warps:
+// 16 leave a thread 128 registers, 24 leave 80): one producer warp or P = 8
+// on up to 16, and at least one consumer warp per radius
+constexpr int max_threads(bool one_warp) { return 32 * (one_warp ? 16 : 24); }
+
+// ---- shared memory by 32-bit shared::cta addresses (see the kernel) --------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// (v, i) beats (bv, bi) when larger, or equal and at a lower index.
-__device__ __forceinline__ void take_better(float& bv, int& bi, float v, int i) {
-  if (v > bv || (v == bv && i < bi)) {
-    bv = v;
-    bi = i;
+__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+// release: the caller's earlier shared-memory accesses are seen by a waiter
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// true once the phase of the given parity has completed; a warp that waits
+// is suspended for up to a hardware time limit first
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// acquire: wait until the phase of the given parity has completed; trap
+// after kSpinCycles of waiting
+__device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const unsigned t0 = clock();
+  while (!mbar_try_wait(bar, parity)) {
+    if (static_cast<unsigned>(clock()) - t0 > kSpinCycles) __trap();
   }
 }
 
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
-    take_better(v, i, ov, oi);
-  }
+__device__ __forceinline__ float4 ld_shared_v4(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a));
+  return v;
 }
 
+// The address of float f of a ring row: its 16-byte chunks are swizzled in
+// groups of eight (chunk c sits at c ^ ((c >> 3) & 7)), so that a quarter
+// warp's stores of P consecutive floats a lane and loads of L consecutive
+// floats a lane each meet eight distinct bank groups.
+__device__ __forceinline__ uint32_t ring_float(uint32_t row, int f) {
+  const int c = f >> 2;
+  return row + 16 * (c ^ ((c >> 3) & 7)) + 4 * (f & 3);
+}
+
+// ---- producers ----------------------------------------------------------------
+
+// A lane's P distances into the row at shared address `row`, at float t*P.
 template <int P>
-__global__ void __launch_bounds__(kMaxThreads)
-fps_bq_fused_kernel(const float* __restrict__ xyz, int* __restrict__ fps_out,
-                    int* __restrict__ bq_out, int N, int npoint, Balls balls) {
-  extern __shared__ float s_xyz[];  // [N * 3]
-  __shared__ float s_val[kMaxWarps];
-  __shared__ int s_idx[kMaxWarps];
-  __shared__ unsigned s_mask[kMaxRadii][P][kMaxWarps];
-  __shared__ int s_cur;
+__device__ __forceinline__ void store_distances(uint32_t row, const float (&d)[P], int t) {
+  if constexpr (P == 1) {
+    asm volatile("st.shared.f32 [%0], %1;" ::"r"(ring_float(row, t)), "f"(d[0]));
+  } else if constexpr (P == 2) {
+    asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(ring_float(row, 2 * t)), "f"(d[0]),
+                 "f"(d[1]));
+  } else {
+#pragma unroll
+    for (int q = 0; q < P; q += 4)
+      asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(ring_float(row, t * P + q)),
+                   "f"(d[q]), "f"(d[q + 1]), "f"(d[q + 2]), "f"(d[q + 3]));
+  }
+}
 
-  const int T = blockDim.x;
+// Before row r, the first of a half ring after the first lap: wait until
+// every consumer warp is done with that half's rows of the lap before, i.e.
+// the next row each will take (its word at `progress`, one per consumer
+// warp, n_cons of them) lies past them.  Lane j reads warp j's word.
+__device__ __forceinline__ void wait_half_free(uint32_t progress, int r, int n_cons,
+                                               int log_depth) {
+  const int depth = 1 << log_depth, half = depth >> 1;
+  if (r < depth || (r & (half - 1)) != 0) return;
+  const int last = r - depth + half - 1;  // the half's last row in the lap before
+  const int lane = threadIdx.x & 31;
+  const unsigned t0 = clock();
+  while (true) {
+    int next = last + 1;
+    if (lane < n_cons)
+      asm volatile("ld.acquire.cta.shared.b32 %0, [%1];" : "=r"(next) : "r"(progress + 4 * lane)
+                   : "memory");
+    if (__all_sync(0xffffffffu, next > last)) break;
+    if (static_cast<unsigned>(clock()) - t0 > kSpinCycles) __trap();
+  }
+  __syncwarp();  // the acquire orders the whole warp's stores into the ring
+}
+
+// ring, full, progress: shared::cta addresses of the ring, its `full`
+// barriers and the consumers' progress words
+template <int P, bool kOneWarp>
+__device__ __forceinline__ void produce(const float* __restrict__ pts, int* __restrict__ frow,
+                                        uint32_t ring, uint32_t full, uint32_t progress,
+                                        fps_round::Partials& sh, int N, int npoint, Ring rg,
+                                        int n_prod, int n_cons) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = T >> 5;
-  const unsigned lanes_below = (1u << lane) - 1u;
-  const float* pts = xyz + (size_t)blockIdx.x * N * 3;
-  int* frow = fps_out + (size_t)blockIdx.x * npoint;
-  int* brows = bq_out + (size_t)blockIdx.x * npoint * balls.S_total;
+  const int n_warps = kOneWarp ? 1 : n_prod >> 5;
 
-  for (int k = tid; k < 3 * N; k += T) s_xyz[k] = pts[k];
+  fps_round::Points<P> cloud;
+  cloud.load(pts, N, tid);
+  if (tid == 0) frow[0] = 0;
+  float cx = pts[0], cy = pts[1], cz = pts[2];
 
-  float px[P], py[P], pz[P], mind[P];
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    const int i = tid + p * T;
-    if (i < N) {
-      px[p] = pts[3 * i];
-      py[p] = pts[3 * i + 1];
-      pz[p] = pts[3 * i + 2];
-      mind[p] = 1e10f;
-    } else {
-      px[p] = py[p] = pz[p] = 0.f;
-      mind[p] = -CUDART_INF_F;  // padding never wins
-    }
-  }
-  if (tid == 0) {
-    s_cur = 0;
-    frow[0] = 0;
-  }
-  __syncthreads();
-
-  for (int j = 0; j < npoint; ++j) {
-    const int cur = s_cur;
-    const float cx = s_xyz[3 * cur], cy = s_xyz[3 * cur + 1], cz = s_xyz[3 * cur + 2];
-    const bool more = j + 1 < npoint;  // a center is still to pick
+  for (int r = 0; r < npoint; ++r) {
+    // round r+1: the distance row of center r, then (r+1 < npoint) center r+1
     float d[P];
-    float bv = -CUDART_INF_F;
-    int bi = 0x7fffffff;
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const int i = tid + p * T;
-      d[p] = sq_dist(px[p], py[p], pz[p], cx, cy, cz);
-      if (more && i < N) {
-        mind[p] = fminf(mind[p], d[p]);
-        if (mind[p] > bv) {  // strict: the first (lowest) index keeps a tie
-          bv = mind[p];
-          bi = i;
-        }
+    cloud.update(cx, cy, cz, d);
+    const int s = r & ((1 << rg.log_depth) - 1);  // the ring slot of row r
+    const uint32_t slot = ring + 4 * s * rg.row;
+    if (r + 1 < npoint) {
+      const fps_round::WarpMax m = cloud.warp_argmax();
+      wait_half_free(progress, r, n_cons, rg.log_depth);
+      store_distances<P>(slot, d, tid);
+      // with several warps, block_argmax's barrier orders the stores
+      const int cur = cloud.block_argmax(m, r + 1, lane, tid >> 5, n_warps, sh, cx, cy, cz);
+      if (tid == 0) frow[r + 1] = cur;
+      if (kOneWarp) __syncwarp();
+    } else {
+      wait_half_free(progress, r, n_cons, rg.log_depth);
+      store_distances<P>(slot, d, tid);
+      if (kOneWarp) {
+        __syncwarp();
+      } else {
+        fps_round::producer_sync(n_prod);
       }
     }
-    // this round's hit masks, one per (radius, slot), and the argmax partials
-    for (int k = 0; k < balls.R; ++k) {
-      const float r2 = balls.r2[k];
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        const unsigned mask = __ballot_sync(0xffffffffu, tid + p * T < N && d[p] < r2);
-        if (lane == 0) s_mask[k][p][warp] = mask;
-      }
-    }
-    if (more) {
-      warp_argmax(bv, bi);
-      if (lane == 0) {
-        s_val[warp] = bv;
-        s_idx[warp] = bi;
-      }
-    }
-    __syncthreads();
-
-    // ball-query rows of center j, one radius after the other
-    int* brow = brows + (size_t)j * balls.S_total;
-    for (int k = 0; k < balls.R; ++k) {
-      const int S = balls.S[k];
-      int* row = brow + balls.off[k];
-      int cnt = 0;     // hits placed before this slot; the same in every thread
-      int first = -1;  // index of the first hit
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        if (cnt < S) {  // block-uniform
-          // lane w holds warp w's hits of this slot
-          const unsigned m_w = lane < n_warps ? s_mask[k][p][lane] : 0u;
-          const int c_w = __popc(m_w);
-          int incl = c_w;  // inclusive prefix over warps 0..lane
-#pragma unroll
-          for (int off = 1; off < 32; off <<= 1) {
-            const int v = __shfl_up_sync(0xffffffffu, incl, off);
-            if (lane >= off) incl += v;
-          }
-          const int before = cnt + __shfl_sync(0xffffffffu, incl - c_w, warp);
-          const unsigned any = __ballot_sync(0xffffffffu, m_w != 0u);
-          if (first < 0 && any) {  // block-uniform
-            const int w = __ffs(any) - 1;
-            first = p * T + w * 32 + __ffs(__shfl_sync(0xffffffffu, m_w, w)) - 1;
-          }
-          cnt += __shfl_sync(0xffffffffu, incl, 31);
-          const unsigned mine = __shfl_sync(0xffffffffu, m_w, warp);  // this warp's hits
-          if (mine & (1u << lane)) {
-            const int slot = before + __popc(mine & lanes_below);
-            if (slot < S) row[slot] = tid + p * T;
-          }
-        }
-      }
-      const int pad = cnt > 0 ? first : 0;
-      for (int s = min(cnt, S) + tid; s < S; s += T) row[s] = pad;
-    }
-
-    if (more && warp == 0) {  // FPS: center j+1
-      bv = lane < n_warps ? s_val[lane] : -CUDART_INF_F;
-      bi = lane < n_warps ? s_idx[lane] : 0x7fffffff;
-      warp_argmax(bv, bi);
-      if (lane == 0) {
-        s_cur = bi;
-        frow[j + 1] = bi;
-      }
-    }
-    __syncthreads();
+    // every producer's stores into the slot are ordered before this release
+    if (tid == 0) mbar_arrive(full + 8 * s);
   }
 }
 
-template <int P>
+// ---- consumers ----------------------------------------------------------------
+
+// The hits among L floats of a distance row (shared address `row`) from
+// float o on, a multiple of 4 (L a multiple of 4, at most 32): bit p is set
+// when point o + p, below N, lies within the squared radius r2.  The
+// ball-query compare is on the distance, never on mind.
+__device__ __forceinline__ unsigned span_hits(uint32_t row, int o, int L, int N, float r2) {
+  unsigned bits = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (4 * j >= L) break;
+    const float4 v = ld_shared_v4(ring_float(row, o + 4 * j));
+    bits |= ((v.x < r2 ? 1u : 0u) | (v.y < r2 ? 2u : 0u) | (v.z < r2 ? 4u : 0u) |
+             (v.w < r2 ? 8u : 0u)) << (4 * j);
+  }
+  const int real = N - o;  // points of the span below N
+  return real >= 32 ? bits : bits & ((1u << max(real, 0)) - 1u);
+}
+
+// One distance row -> the first S indices of its points within r2, in index
+// order, padded with the first hit (zeros for an empty ball).  Lane l takes
+// the L points from l*L on (L = min(ceil(N/32) rounded up to 4, 32)), 32*L
+// points a pass.
+__device__ __forceinline__ void compact_row(uint32_t row, int N, int L, float r2, int S,
+                                            int* __restrict__ out, int lane) {
+  const unsigned all = 0xffffffffu;
+  const unsigned below = (1u << lane) - 1u;
+  int cnt = 0;     // hits before this pass; the same in every lane
+  int first = -1;  // the row's first hit
+  for (int base = 0; base < N && cnt < S; base += 32 * L) {
+    const int o = base + lane * L;  // this lane's first point
+    unsigned bits = o < N ? span_hits(row, o, L, N, r2) : 0u;
+    // exclusive prefix of n over the lanes from the ballots of its 6 bits
+    const int n = __popc(bits);
+    int before = 0, total = 0;
+#pragma unroll
+    for (int b = 0; b < 6; ++b) {
+      const unsigned m = __ballot_sync(all, (n >> b) & 1);
+      before += __popc(m & below) << b;
+      total += __popc(m) << b;
+    }
+    if (first < 0) {
+      const unsigned any = __ballot_sync(all, bits != 0u);
+      if (any) {
+        const int src = __ffs(any) - 1;
+        first = base + src * L + __ffs(__shfl_sync(all, bits, src)) - 1;
+      }
+    }
+    for (int rank = cnt + before; bits && rank < S; ++rank) {
+      out[rank] = o + __ffs(bits) - 1;
+      bits &= bits - 1u;
+    }
+    cnt += total;
+  }
+  const int pad = cnt > 0 ? first : 0;
+  for (int q = min(cnt, S) + lane; q < S; q += 32) out[q] = pad;
+}
+
+// Consumer warp c of the C of radius k: rows c, c + C, c + 2C, ... as the
+// producers fill them; `progress` is its word.
+__device__ __forceinline__ void consume(uint32_t ring, int* __restrict__ brows, uint32_t full,
+                                       uint32_t progress, int N, int npoint, const Balls& balls,
+                                       Ring rg, int k, int c, int C) {
+  const int lane = threadIdx.x & 31;
+  const int L = min(((N + 31) / 32 + 3) / 4 * 4, 32);
+  // radius k's values, picked at constant indices: a parameter indexed at
+  // run time compiles to a chain of predicated loads over the whole struct
+  float r2 = 0.f;
+  int S = 0, col = 0;
+#pragma unroll
+  for (int j = 0; j < kMaxRadii; ++j) {
+    if (j == k) {
+      r2 = balls.r2[j];
+      S = balls.S[j];
+      col = balls.off[j];
+    }
+  }
+  for (int r = c; r < npoint; r += C) {
+    const int s = r & ((1 << rg.log_depth) - 1);
+    mbar_wait(full + 8 * s, (r >> rg.log_depth) & 1);
+    compact_row(ring + 4 * s * rg.row, N, L, r2, S, brows + (size_t)r * balls.S_total + col,
+                lane);
+    __syncwarp();  // the warp's reads of the slot are done
+    if (lane == 0)  // release: those reads come before a producer's next write
+      asm volatile("st.release.cta.shared.b32 [%0], %1;" ::"r"(progress), "r"(r + C) : "memory");
+  }
+}
+
+// minBlocksPerSM = 1: without it ptxas spills to fit more blocks on an SM,
+// which a kernel of one block per cloud does not need
+template <int P, bool kOneWarp>
+__global__ void __launch_bounds__(max_threads(kOneWarp), 1)
+fps_bq_fused_kernel(const float* __restrict__ xyz, int* __restrict__ fps_out,
+                    int* __restrict__ bq_out, int N, int npoint, Balls balls, Ring rg,
+                    int n_prod, int C) {
+  extern __shared__ __align__(16) float smem[];  // [depth][rg.row] distance rows
+  __shared__ uint64_t full_bars[kMaxDepth];
+  __shared__ int next_rows[32];  // per consumer warp, the next row it will take
+  __shared__ fps_round::Partials sh;
+
+  // Through a shuffle, which ptxas cannot redo, the addresses stay in
+  // registers; else it rebuilds them from %cgactaid at uses in the loops.
+  const uint32_t ring = __shfl_sync(0xffffffffu, smem_addr(smem), 0);
+  const uint32_t full = __shfl_sync(0xffffffffu, smem_addr(full_bars), 0);
+  const uint32_t progress = __shfl_sync(0xffffffffu, smem_addr(next_rows), 0);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < (1 << rg.log_depth); ++s) mbar_init(full + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int q = 0; q < 32; ++q) next_rows[q] = q / balls.R;  // warp q starts at row q / R
+  }
+  __syncthreads();  // the last block-wide barrier: the roles never meet again
+
+  const float* pts = xyz + (size_t)blockIdx.x * N * 3;
+  if (tid < n_prod) {
+    produce<P, kOneWarp>(pts, fps_out + (size_t)blockIdx.x * npoint, ring, full, progress, sh,
+                         N, npoint, rg, n_prod, balls.R * C);
+  } else {
+    // Warp w issues on SM sub-partition w % 4.  A one-warp producer keeps
+    // its own: the warps there stay idle, as a consumer beside the producer
+    // takes issue slots from the round (PERF.md, section 6).  Several
+    // producer warps spread over all four, which beat packing them on fewer.
+    const int w = tid >> 5;
+    if (kOneWarp && w % 4 == 0) return;
+    // consumer warp q: radius q % R, rows from q / R
+    const int q = kOneWarp ? w - 1 - w / 4 : (tid - n_prod) >> 5;
+    consume(ring, bq_out + (size_t)blockIdx.x * npoint * balls.S_total, full, progress + 4 * q,
+            N, npoint, balls, rg, q % balls.R, q / balls.R, C);
+  }
+}
+
+template <int P, bool kOneWarp>
 cudaError_t launch(const float* xyz, int* fps_out, int* bq_out, int B, int N, int npoint,
-                   const Balls& balls, int threads, cudaStream_t stream) {
-  const size_t smem = (size_t)N * 3 * sizeof(float);
-  if (smem > 32 * 1024) {  // with the static masks (up to 8 KB) past the default 48 KB
-    const cudaError_t e = cudaFuncSetAttribute(
-        fps_bq_fused_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                   const Balls& balls, int n_prod, cudaStream_t stream) {
+  // C consumer warps per radius, up to kConsumersPerRadius within the block
+  // (with one producer warp, every fourth warp is idle: see the kernel)
+  const int room = (max_threads(kOneWarp) - n_prod) / 32;
+  const int C = max(1, min(kConsumersPerRadius, (kOneWarp ? room * 3 / 4 : room) / balls.R));
+  const int n_cons = balls.R * C;
+  const int threads = n_prod + 32 * (n_cons + (kOneWarp ? (n_cons - 1) / 3 : 0));
+  if (threads > max_threads(kOneWarp)) return cudaErrorInvalidValue;
+  Ring rg;
+  rg.row = (n_prod * P + 127) / 128 * 128;
+  rg.log_depth = 4;  // 16 slots, 8 where that passes kRingBytes (N > 2048)
+  while (rg.log_depth > 3 && ((size_t)rg.row * 4 << rg.log_depth) > kRingBytes) --rg.log_depth;
+  const size_t smem = ((size_t)rg.row << rg.log_depth) * 4;
+  if (smem > 32 * 1024) {  // past the default 48 KB with the static part
+    const cudaError_t e = cudaFuncSetAttribute(fps_bq_fused_kernel<P, kOneWarp>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
     if (e != cudaSuccess) return e;
   }
-  fps_bq_fused_kernel<P><<<B, threads, smem, stream>>>(xyz, fps_out, bq_out, N, npoint, balls);
+  fps_bq_fused_kernel<P, kOneWarp><<<B, threads, smem, stream>>>(
+      xyz, fps_out, bq_out, N, npoint, balls, rg, n_prod, C);
   return cudaGetLastError();
 }
 
@@ -240,8 +415,7 @@ extern "C" int gp_fps_bq_fused(const float* xyz, int* fps_out, int* bq_out, int 
                                int npoint, int R, const float* r2, const int* nsamples,
                                void* stream) {
   if (B <= 0 || npoint <= 0) return 0;
-  if (N <= 0 || N > kMaxThreads * kMaxPerThread || R <= 0 || R > kMaxRadii)
-    return (int)cudaErrorInvalidValue;
+  if (N <= 0 || N > kMaxPoints || R <= 0 || R > kMaxRadii) return (int)cudaErrorInvalidValue;
   Balls balls{};
   balls.R = R;
   int off = 0;
@@ -253,14 +427,27 @@ extern "C" int gp_fps_bq_fused(const float* xyz, int* fps_out, int* bq_out, int 
     off += nsamples[k];
   }
   balls.S_total = off;
-  const int threads = N < kMaxThreads ? ((N + 31) / 32) * 32 : kMaxThreads;
-  const int per = (N + threads - 1) / threads;
+  // producers as csrc/fps.cu: one warp with the smallest P that holds the
+  // cloud up to 512 points, else P = 8
+  const bool one = N <= 512;
+  int P = 8;
+  if (one) {
+    P = 16;
+    while (P > 1 && (P / 2) * 32 >= N) P /= 2;
+  }
+  const int n_prod = ((N + P - 1) / P + 31) / 32 * 32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (per <= 1) e = launch<1>(xyz, fps_out, bq_out, B, N, npoint, balls, threads, s);
-  else if (per <= 2) e = launch<2>(xyz, fps_out, bq_out, B, N, npoint, balls, threads, s);
-  else if (per <= 4) e = launch<4>(xyz, fps_out, bq_out, B, N, npoint, balls, threads, s);
-  else if (per <= 8) e = launch<8>(xyz, fps_out, bq_out, B, N, npoint, balls, threads, s);
-  else e = launch<16>(xyz, fps_out, bq_out, B, N, npoint, balls, threads, s);
+  switch (P) {
+    case 1: e = launch<1, true>(xyz, fps_out, bq_out, B, N, npoint, balls, n_prod, s); break;
+    case 2: e = launch<2, true>(xyz, fps_out, bq_out, B, N, npoint, balls, n_prod, s); break;
+    case 4: e = launch<4, true>(xyz, fps_out, bq_out, B, N, npoint, balls, n_prod, s); break;
+    case 8:
+      e = one ? launch<8, true>(xyz, fps_out, bq_out, B, N, npoint, balls, n_prod, s)
+              : launch<8, false>(xyz, fps_out, bq_out, B, N, npoint, balls, n_prod, s);
+      break;
+    case 16: e = launch<16, true>(xyz, fps_out, bq_out, B, N, npoint, balls, n_prod, s); break;
+    default: e = cudaErrorInvalidValue;
+  }
   return (int)e;
 }

@@ -10,7 +10,8 @@ Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper), ``-O3``, and
 ``-fmad=false``: nvcc otherwise contracts ``a*b + c`` into one FMA, which
 rounds once instead of twice and breaks the bit-exact distance compares
 against the float32 oracles.  The file name carries a hash of the sources
-and flags, so an edited source is rebuilt and a stale library never loads.
+and flags, and of the headers they include (``csrc/*.cuh``), so an edited
+source or header is rebuilt and a stale library never loads.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libgenpose_kernels_{h.hexdigest()[:12]}.so"
