@@ -162,12 +162,15 @@ def examined_pairs(xyz, centers, radii, nsamples, tables):
     return float(later.sum()), [float(st.sum()) for st in stops], hits
 
 
-def device_ms(fn, iters: int, tag: str):
-    """Device milliseconds per call of the kernels whose name holds ``tag``,
-    by ``torch.profiler`` over ``iters`` calls after a warm call: unlike CUDA
-    events around back-to-back calls, it leaves out the host's issue time.
-    A trace that lost launches is taken again; after three such traces the
-    time is not measured (None), which is printed."""
+def device_ms(fn, iters: int, tags, per_call: int = 1):
+    """Device milliseconds per call of the kernels whose name holds one of
+    ``tags`` (a name or a tuple of them), by ``torch.profiler`` over ``iters``
+    calls after a warm call: unlike CUDA events around back-to-back calls,
+    it leaves out the host's issue time.  A call launches each tag's kernel
+    ``per_call`` times; a trace that holds another count of any of them lost
+    launches and is taken again.  After three such traces the time is not
+    measured (None), which is printed."""
+    tags = (tags,) if isinstance(tags, str) else tuple(tags)
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -176,16 +179,20 @@ def device_ms(fn, iters: int, tag: str):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-                  and tag in e.key]
-        seen = sum(e.count for e in events)
-        if seen == iters:
-            return sum(e.self_device_time_total for e in events) / 1e3 / iters
-        print(f"profiler: the trace holds {seen} of the {iters} launches of {tag} "
-              f"({[e.key[:60] for e in events]})", flush=True)
-    print(f"profiler: device time of {tag} not measured", flush=True)
+        events = {t: [e for e in prof.key_averages()
+                      if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                      and t in e.key] for t in tags}
+        seen = {t: sum(e.count for e in ev) for t, ev in events.items()}
+        if all(n == iters * per_call for n in seen.values()):
+            return sum(e.self_device_time_total for ev in events.values() for e in ev) / 1e3 / iters
+        print(f"profiler: the trace holds {seen} launches, {iters * per_call} of each expected "
+              f"({[e.key[:60] for ev in events.values() for e in ev]})", flush=True)
+    print(f"profiler: device time of {' + '.join(tags)} not measured", flush=True)
     return None
+
+
+def _ms(x):
+    return "not measured" if x is None else f"{x:.4f} ms"
 
 
 def per_round(dev_ms, npoint: int):
@@ -331,6 +338,7 @@ def check_kernels(dev):
                       lambda p=pts, m=m, r=radii, s=nsamples: pc.fps_bq_fused_ref(p, m, r, s)))
     # npoint > N, and r=0: every ball empty (a center is a point of its cloud)
     small = odd[:, :64].contiguous()
+    big = torch.randn(2, 8192, 3, generator=gen, device=dev) * 0.1  # the most points it takes
     radii8, nsamples8 = (0.01, 0.02, 0.04, 0.08, 0.16, 0.3, 0.0, 1.0), (3, 16, 32, 5, 33, 64, 2, 7)
     cases += [
         ("fused npoint > N, empty balls",
@@ -344,6 +352,8 @@ def check_kernels(dev):
         ("fused N=33, npoint=1", lambda: fps_bq_fused_cuda(odd[:, :33].contiguous(), 1,
                                                           (0.05, 0.3), (4, 40)),
          lambda: pc.fps_bq_fused_ref(odd[:, :33].contiguous(), 1, (0.05, 0.3), (4, 40))),
+        ("fused N=8192, eight radii", lambda: fps_bq_fused_cuda(big, 64, radii8, nsamples8),
+         lambda: pc.fps_bq_fused_ref(big, 64, radii8, nsamples8)),
     ]
     for name, kern, plain in cases:
         same(kern(), plain(), name)
@@ -512,28 +522,21 @@ def fused_geometry_path(dev):
         if not (torch.equal(fi_f, fi_s) and all(torch.equal(a, b) for a, b in zip(bq_f, bq_s))):
             raise AssertionError("the fused and separate arms of the chain disagree")
     times = bench.measure(pts, iters=16)
-    # each arm's kernels' device time in one chain, by the profiler
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    profiled = {}
-    for use_fused, tags in ((True, ("fps_bq_fused_kernel",)),
-                            (False, ("fps_kernel", "ball_query_kernel"))):
-        with torch.profiler.profile(activities=acts) as prof:
-            bench.chain(pts, use_fused)
-            torch.cuda.synchronize()
-        profiled[use_fused] = sum(
-            e.self_device_time_total for e in prof.key_averages()
-            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-            and any(t in e.key for t in tags)) / 1e3
-    times["chain_fused_device_ms"] = profiled[True] or None
-    times["chain_separate_device_ms"] = profiled[False] or None
+    # each arm's kernels' device time per chain, by the profiler (3 launches
+    # of each kernel a chain)
+    profiled = {use_fused: device_ms(lambda u=use_fused: bench.chain(pts, u), 4, tags, per_call=3)
+                for use_fused, tags in ((True, "fps_bq_fused_kernel"),
+                                        (False, ("fps_kernel", "ball_query_kernel")))}
+    times["chain_fused_device_ms"] = profiled[True]
+    times["chain_separate_device_ms"] = profiled[False]
     verdict = "win" if times["chain_fused_win_pct"] > 0 else "loss"
     print(f"fused geometry chain (B={B}, 3 stages): separate {times['chain_separate_ms']:.4f} ms, "
           f"fused {times['chain_fused_ms']:.4f} ms: a {verdict} of "
           f"{abs(times['chain_fused_win_pct']):.2f}% for the fused kernel; per stage "
           + ", ".join(f"{k} {v:.4f}" for k, v in times.items() if k.startswith("s"))
-          + f"; device time per chain (profiled): fused kernel {profiled[True]:.4f} ms, "
-          f"FPS + ball query {profiled[False]:.4f} ms; {card_line()}", flush=True)
-    return launches[True]["fps_bq_fused"], times, profiled[True] or None
+          + f"; device time per chain (profiled): fused kernel {_ms(profiled[True])}, "
+          f"FPS + ball query {_ms(profiled[False])}; {card_line()}", flush=True)
+    return launches[True]["fps_bq_fused"], times, profiled[True]
 
 
 def _raw_batches(rng, n, bs, n_pts):

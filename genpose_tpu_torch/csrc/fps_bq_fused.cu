@@ -34,11 +34,13 @@
 //     that).  Comparing and packing bits in the round instead lengthened it
 //     the most after the hand-off (PERF.md, section 6): a one-warp producer
 //     issues every compare itself, in order.
-//   * Consumer warps, C per radius taking rows in turn, turn a distance row
-//     into its index row.  Each lane takes a contiguous span of the row, L =
-//     min(ceil(N/32) rounded up to 4, 32) points, in 128-bit loads, and
-//     compares them with r2_k itself (the ball-query compare is on d, never
-//     on mind): its span's hit bits, in registers.  A warp exclusive scan of
+//   * Consumer warps, Q of them, turn distance rows into index rows: warp q
+//     takes the (row, radius) tasks q, q + Q, q + 2Q, ... of the npoint x R
+//     in row-major order, so with Q = C*R (the path's shapes) each warp
+//     keeps one radius and every C-th row.  Each lane takes a contiguous
+//     span of the row, L = min(ceil(N/32) rounded up to 4, 32) points, in
+//     128-bit loads, and compares them with r2_k itself (the ball-query
+//     compare is on d, never on mind): its span's hit bits, in registers.  A warp exclusive scan of
 //     the spans' popcounts (ballots of the counts' bits) gives each lane the
 //     rank of its first hit, and each lane writes its hits at their ranks
 //     below S_k.  The first hit (ballot + __ffs over the non-empty spans)
@@ -46,10 +48,10 @@
 //     lane's serial part short where balls are dense (8 points a lane at
 //     N = 256).  A consumer warp takes longer for a row than a producer
 //     round (a latency-bound chain of loads, votes, popcounts and bit
-//     scans), hence C of them.  Beside a one-warp producer, no consumer
-//     shares its SM sub-partition.  The ring's 16-byte chunks are swizzled,
-//     so the producers' stores and the consumers' loads are free of bank
-//     conflicts.
+//     scans), hence up to four per radius.  Beside a one-warp producer, no
+//     consumer shares its SM sub-partition.  The ring's 16-byte chunks are
+//     swizzled, so the producers' stores and the consumers' loads are free
+//     of bank conflicts.
 //   * The hand-off: per ring slot a `full` mbarrier (one arrival, producer
 //     thread 0's, after the producers' barrier of the round that wrote the
 //     row), on which consumers wait suspended.  The way back is a progress
@@ -62,9 +64,16 @@
 //     a check needed one per consumer warp of a radius.  Every wait spins
 //     for at most 2^31 cycles (~1 s) and then traps, so a protocol fault is
 //     a CUDA error, not a hang.
-// The producers' shape, the consumers per radius and the ring's depth follow
-// from N and R alone.  One launch covers every radius; the rows of all radii
-// lie side by side in one [B, npoint, sum S_k] buffer.
+// The producers' shape is csrc/fps.cu's up to 4096 points (one warp with
+// the smallest P up to 512, then P = 8 on up to 16 warps).  From 4097 to
+// 8192 points it is P = 16 on up to 16 warps in a block of at most 20
+// warps (so 4 or more consumers): at 20 warps a thread keeps 96 registers,
+// and there each lane stores its distances before the argmax, so that d is
+// dead before the reduction tree.  The producers' shape, the consumer
+// warps and the ring's depth (16 slots, halved while the ring passes 128
+// KB: 4 at 8192 points) follow from N and R alone.  One launch covers every
+// radius; the rows of all radii lie side by side in one [B, npoint, sum
+// S_k] buffer.
 //
 // Bit-exactness: the distance is csrc/fps_round.cuh's (__fsub_rn/__fmul_rn/
 // __fadd_rn in the oracles' order); r2_k arrives already rounded to float32
@@ -78,12 +87,9 @@
 
 namespace {
 
-// 4096 points (as csrc/ball_query.cu) keep P = 8 on at most 16 producer
-// warps.  More would need P = 16 on 16 warps beside the consumers: 17 warps
-// or more leave a thread 96 registers, and ptxas spilled that round there.
-constexpr int kMaxPoints = 4096;
+constexpr int kMaxPoints = 8192;         // as csrc/fps.cu: P = 16 on 16 producer warps
 constexpr int kMaxRadii = 8;
-constexpr int kMaxDepth = 16;            // ring slots, 8 above 2048 points
+constexpr int kMaxDepth = 16;            // ring slots: 8 above 2048 points, 4 above 4096
 constexpr int kRingBytes = 128 * 1024;
 constexpr int kConsumersPerRadius = 4;
 constexpr unsigned kSpinCycles = 1u << 31;  // a wait this long is a protocol fault
@@ -102,10 +108,12 @@ struct Ring {
   int log_depth;  // log2 of the slots
 };
 
-// the most threads a launch takes, which sets the register cap (in warps:
-// 16 leave a thread 128 registers, 24 leave 80): one producer warp or P = 8
-// on up to 16, and at least one consumer warp per radius
-constexpr int max_threads(bool one_warp) { return 32 * (one_warp ? 16 : 24); }
+// the most threads a launch takes, which sets the register cap (the warps
+// share an SM's four sub-partitions: 16 warps leave a thread 128 registers,
+// 20 leave 96, 24 leave 80): one producer warp, P = 8 on up to 16 warps
+// beside at least 8 consumer warps, or P = 16 on up to 16 beside at least 4
+template <int P, bool kOneWarp>
+constexpr int max_threads() { return 32 * (kOneWarp ? 16 : P >= 16 ? 20 : 24); }
 
 // ---- shared memory by 32-bit shared::cta addresses (see the kernel) --------
 
@@ -219,6 +227,9 @@ __device__ __forceinline__ void produce(const float* __restrict__ pts, int* __re
   if (tid == 0) frow[0] = 0;
   float cx = pts[0], cy = pts[1], cz = pts[2];
 
+  // at 16 points a lane on several warps, the row is stored before the
+  // argmax, so that d is dead before the reduction tree (see the top)
+  constexpr bool kStoreFirst = !kOneWarp && P >= 16;
   for (int r = 0; r < npoint; ++r) {
     // round r+1: the distance row of center r, then (r+1 < npoint) center r+1
     float d[P];
@@ -226,9 +237,15 @@ __device__ __forceinline__ void produce(const float* __restrict__ pts, int* __re
     const int s = r & ((1 << rg.log_depth) - 1);  // the ring slot of row r
     const uint32_t slot = ring + 4 * s * rg.row;
     if (r + 1 < npoint) {
+      if (kStoreFirst) {
+        wait_half_free(progress, r, n_cons, rg.log_depth);
+        store_distances<P>(slot, d, tid);
+      }
       const fps_round::WarpMax m = cloud.warp_argmax();
-      wait_half_free(progress, r, n_cons, rg.log_depth);
-      store_distances<P>(slot, d, tid);
+      if (!kStoreFirst) {
+        wait_half_free(progress, r, n_cons, rg.log_depth);
+        store_distances<P>(slot, d, tid);
+      }
       // with several warps, block_argmax's barrier orders the stores
       const int cur = cloud.block_argmax(m, r + 1, lane, tid >> 5, n_warps, sh, cx, cy, cz);
       if (tid == 0) frow[r + 1] = cur;
@@ -305,43 +322,58 @@ __device__ __forceinline__ void compact_row(uint32_t row, int N, int L, float r2
   for (int q = min(cnt, S) + lane; q < S; q += 32) out[q] = pad;
 }
 
-// Consumer warp c of the C of radius k: rows c, c + C, c + 2C, ... as the
-// producers fill them; `progress` is its word.
+// Consumer warp q of Q: the tasks q, q + Q, q + 2Q, ... (task t is row t / R
+// and radius t % R) as the producers fill the rows; `progress` is its word.
 __device__ __forceinline__ void consume(uint32_t ring, int* __restrict__ brows, uint32_t full,
                                        uint32_t progress, int N, int npoint, const Balls& balls,
-                                       Ring rg, int k, int c, int C) {
+                                       Ring rg, int q, int Q) {
   const int lane = threadIdx.x & 31;
   const int L = min(((N + 31) / 32 + 3) / 4 * 4, 32);
-  // radius k's values, picked at constant indices: a parameter indexed at
-  // run time compiles to a chain of predicated loads over the whole struct
+  const int R = balls.R;
+  const int dr = Q / R, dk = Q % R;  // a step of Q tasks in rows and radii
+  int r = q / R, k = q % R;          // the task's row and radius
   float r2 = 0.f;
   int S = 0, col = 0;
+  // radius k's values, picked at constant indices: a parameter indexed at
+  // run time compiles to a chain of predicated loads over the whole struct
+  auto pick = [&] {
 #pragma unroll
-  for (int j = 0; j < kMaxRadii; ++j) {
-    if (j == k) {
-      r2 = balls.r2[j];
-      S = balls.S[j];
-      col = balls.off[j];
+    for (int j = 0; j < kMaxRadii; ++j) {
+      if (j == k) {
+        r2 = balls.r2[j];
+        S = balls.S[j];
+        col = balls.off[j];
+      }
     }
-  }
-  for (int r = c; r < npoint; r += C) {
+  };
+  pick();
+  while (r < npoint) {
     const int s = r & ((1 << rg.log_depth) - 1);
     mbar_wait(full + 8 * s, (r >> rg.log_depth) & 1);
     compact_row(ring + 4 * s * rg.row, N, L, r2, S, brows + (size_t)r * balls.S_total + col,
                 lane);
     __syncwarp();  // the warp's reads of the slot are done
+    r += dr;
+    if (dk != 0) {  // the radius changes from task to task
+      k += dk;
+      if (k >= R) {
+        k -= R;
+        ++r;
+      }
+      pick();
+    }
     if (lane == 0)  // release: those reads come before a producer's next write
-      asm volatile("st.release.cta.shared.b32 [%0], %1;" ::"r"(progress), "r"(r + C) : "memory");
+      asm volatile("st.release.cta.shared.b32 [%0], %1;" ::"r"(progress), "r"(r) : "memory");
   }
 }
 
 // minBlocksPerSM = 1: without it ptxas spills to fit more blocks on an SM,
 // which a kernel of one block per cloud does not need
 template <int P, bool kOneWarp>
-__global__ void __launch_bounds__(max_threads(kOneWarp), 1)
+__global__ void __launch_bounds__(max_threads<P, kOneWarp>(), 1)
 fps_bq_fused_kernel(const float* __restrict__ xyz, int* __restrict__ fps_out,
                     int* __restrict__ bq_out, int N, int npoint, Balls balls, Ring rg,
-                    int n_prod, int C) {
+                    int n_prod, int Q) {
   extern __shared__ __align__(16) float smem[];  // [depth][rg.row] distance rows
   __shared__ uint64_t full_bars[kMaxDepth];
   __shared__ int next_rows[32];  // per consumer warp, the next row it will take
@@ -356,14 +388,14 @@ fps_bq_fused_kernel(const float* __restrict__ xyz, int* __restrict__ fps_out,
   if (tid == 0) {
     for (int s = 0; s < (1 << rg.log_depth); ++s) mbar_init(full + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    for (int q = 0; q < 32; ++q) next_rows[q] = q / balls.R;  // warp q starts at row q / R
+    for (int q = 0; q < 32; ++q) next_rows[q] = q / balls.R;  // warp q starts at task q
   }
   __syncthreads();  // the last block-wide barrier: the roles never meet again
 
   const float* pts = xyz + (size_t)blockIdx.x * N * 3;
   if (tid < n_prod) {
     produce<P, kOneWarp>(pts, fps_out + (size_t)blockIdx.x * npoint, ring, full, progress, sh,
-                         N, npoint, rg, n_prod, balls.R * C);
+                         N, npoint, rg, n_prod, Q);
   } else {
     // Warp w issues on SM sub-partition w % 4.  A one-warp producer keeps
     // its own: the warps there stay idle, as a consumer beside the producer
@@ -371,27 +403,26 @@ fps_bq_fused_kernel(const float* __restrict__ xyz, int* __restrict__ fps_out,
     // producer warps spread over all four, which beat packing them on fewer.
     const int w = tid >> 5;
     if (kOneWarp && w % 4 == 0) return;
-    // consumer warp q: radius q % R, rows from q / R
-    const int q = kOneWarp ? w - 1 - w / 4 : (tid - n_prod) >> 5;
+    const int q = kOneWarp ? w - 1 - w / 4 : (tid - n_prod) >> 5;  // consumer warp q
     consume(ring, bq_out + (size_t)blockIdx.x * npoint * balls.S_total, full, progress + 4 * q,
-            N, npoint, balls, rg, q % balls.R, q / balls.R, C);
+            N, npoint, balls, rg, q, Q);
   }
 }
 
 template <int P, bool kOneWarp>
 cudaError_t launch(const float* xyz, int* fps_out, int* bq_out, int B, int N, int npoint,
                    const Balls& balls, int n_prod, cudaStream_t stream) {
-  // C consumer warps per radius, up to kConsumersPerRadius within the block
+  // Q consumer warps, up to kConsumersPerRadius per radius within the block
   // (with one producer warp, every fourth warp is idle: see the kernel)
-  const int room = (max_threads(kOneWarp) - n_prod) / 32;
-  const int C = max(1, min(kConsumersPerRadius, (kOneWarp ? room * 3 / 4 : room) / balls.R));
-  const int n_cons = balls.R * C;
-  const int threads = n_prod + 32 * (n_cons + (kOneWarp ? (n_cons - 1) / 3 : 0));
-  if (threads > max_threads(kOneWarp)) return cudaErrorInvalidValue;
+  constexpr int kMaxThreads = max_threads<P, kOneWarp>();
+  const int room = (kMaxThreads - n_prod) / 32;
+  const int Q = min(kConsumersPerRadius * balls.R, kOneWarp ? room * 3 / 4 : room);
+  const int threads = n_prod + 32 * (Q + (kOneWarp ? (Q - 1) / 3 : 0));
+  if (Q < 1 || threads > kMaxThreads) return cudaErrorInvalidValue;
   Ring rg;
   rg.row = (n_prod * P + 127) / 128 * 128;
-  rg.log_depth = 4;  // 16 slots, 8 where that passes kRingBytes (N > 2048)
-  while (rg.log_depth > 3 && ((size_t)rg.row * 4 << rg.log_depth) > kRingBytes) --rg.log_depth;
+  rg.log_depth = 4;  // 16 slots, halved while that passes kRingBytes
+  while (rg.log_depth > 2 && ((size_t)rg.row * 4 << rg.log_depth) > kRingBytes) --rg.log_depth;
   const size_t smem = ((size_t)rg.row << rg.log_depth) * 4;
   if (smem > 32 * 1024) {  // past the default 48 KB with the static part
     const cudaError_t e = cudaFuncSetAttribute(fps_bq_fused_kernel<P, kOneWarp>,
@@ -400,7 +431,7 @@ cudaError_t launch(const float* xyz, int* fps_out, int* bq_out, int B, int N, in
     if (e != cudaSuccess) return e;
   }
   fps_bq_fused_kernel<P, kOneWarp><<<B, threads, smem, stream>>>(
-      xyz, fps_out, bq_out, N, npoint, balls, rg, n_prod, C);
+      xyz, fps_out, bq_out, N, npoint, balls, rg, n_prod, Q);
   return cudaGetLastError();
 }
 
@@ -428,9 +459,9 @@ extern "C" int gp_fps_bq_fused(const float* xyz, int* fps_out, int* bq_out, int 
   }
   balls.S_total = off;
   // producers as csrc/fps.cu: one warp with the smallest P that holds the
-  // cloud up to 512 points, else P = 8
+  // cloud up to 512 points, P = 8 up to 4096, else P = 16 (see the top)
   const bool one = N <= 512;
-  int P = 8;
+  int P = N <= 4096 ? 8 : 16;
   if (one) {
     P = 16;
     while (P > 1 && (P / 2) * 32 >= N) P /= 2;
@@ -446,7 +477,10 @@ extern "C" int gp_fps_bq_fused(const float* xyz, int* fps_out, int* bq_out, int 
       e = one ? launch<8, true>(xyz, fps_out, bq_out, B, N, npoint, balls, n_prod, s)
               : launch<8, false>(xyz, fps_out, bq_out, B, N, npoint, balls, n_prod, s);
       break;
-    case 16: e = launch<16, true>(xyz, fps_out, bq_out, B, N, npoint, balls, n_prod, s); break;
+    case 16:
+      e = one ? launch<16, true>(xyz, fps_out, bq_out, B, N, npoint, balls, n_prod, s)
+              : launch<16, false>(xyz, fps_out, bq_out, B, N, npoint, balls, n_prod, s);
+      break;
     default: e = cudaErrorInvalidValue;
   }
   return (int)e;

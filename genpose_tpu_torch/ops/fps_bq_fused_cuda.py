@@ -15,7 +15,7 @@ import torch
 from genpose_tpu_torch.ops import _build
 from genpose_tpu_torch.ops.pointcloud import radius_sq_f32
 
-MAX_POINTS = 4096  # P = 8 points a lane on 16 producer warps (csrc/fps_bq_fused.cu)
+MAX_POINTS = 8192  # 512 threads x 16 register slots, as csrc/fps.cu
 MAX_RADII = 8
 
 # Kernel launches since import.  A run that resets it and reads it afterwards

@@ -22,12 +22,6 @@ def csrc(tmp_path, monkeypatch):
     return copy
 
 
-def test_the_sources_include_the_shared_fps_round(csrc):
-    assert (csrc / "fps_round.cuh").exists()
-    for src in ("fps.cu", "fps_bq_fused.cu"):
-        assert '#include "fps_round.cuh"' in (csrc / src).read_text()
-
-
 @pytest.mark.parametrize("name", ["fps_round.cuh", "fps.cu", "fps_bq_fused.cu"])
 def test_an_edit_renames_the_library(csrc, name):
     before = _build.library_path()

@@ -116,22 +116,59 @@ def test_ball_query_msg_kernel_boundary_and_empty_balls(dev):
     assert not any(g.any() for g in got)
 
 
-@pytest.mark.parametrize("B,N,M,radii,nsamples", [
-    (64, 1024, 512, (0.02, 0.04), (16, 32)), (64, 512, 256, (0.04, 0.08), (16, 32)),
-    (64, 256, 128, (0.08, 0.16), (16, 32)), (4, 512, 256, (0.02, 0.04), (16, 32)),
-    (3, 256, 128, (0.08, 0.16), (16, 32)), (2, 100, 64, (0.3,), (8,)),
-    (3, 64, 512, (0.05, 1.0, 0.0), (4, 40, 2)), (2, 4096, 100, (0.01,), (7,))])
-def test_fused_kernel_equals_plain(dev, B, N, M, radii, nsamples):
-    """At the three stage shapes of the serving path (B=64), the JAX test's
-    shapes, npoint > N with an empty-ball radius, and N = 4096, the most
-    points the kernel takes."""
-    xyz = _cloud(dev, B, N, seed=N + M)
+def _fused_both_ways(xyz, M, radii, nsamples):
+    """The fused kernel against its plain version and, up to the ball-query
+    kernel's 4096 points, against the separate kernels (FPS, gather, ball
+    query in launches of at most 4 radii)."""
+    launches = fused_mod.launches
     got_idx, got_bq = fused_mod.fps_bq_fused_cuda(xyz, M, radii, nsamples)
     torch.cuda.synchronize()
+    assert fused_mod.launches == launches + 1
     want_idx, want_bq = pc.fps_bq_fused_ref(xyz, M, radii, nsamples)
     assert torch.equal(got_idx, want_idx)
+    assert len(got_bq) == len(want_bq) == len(radii)
     for got, want in zip(got_bq, want_bq):
+        assert got.shape == (xyz.shape[0], M, want.shape[-1])
         assert torch.equal(got, want)
+    sep_idx = fps_mod.fps_cuda(xyz, M)
+    assert torch.equal(got_idx, sep_idx)
+    if xyz.shape[1] <= bq_mod.MAX_POINTS:
+        centers = pc.gather_points(xyz, sep_idx)
+        sep_bq = sum((bq_mod.ball_query_cuda(radii[k:k + 4], nsamples[k:k + 4], xyz, centers)
+                      for k in range(0, len(radii), 4)), ())
+        torch.cuda.synchronize()
+        assert all(torch.equal(got, sep) for got, sep in zip(got_bq, sep_bq))
+
+
+R3 = ((0.05, 0.3, 0.0), (4, 40, 2))  # with r = 0: every ball empty
+R8 = ((0.01, 0.02, 0.04, 0.08, 0.16, 0.3, 0.0, 1.0), (3, 16, 32, 5, 33, 64, 2, 7))
+R8B = ((0.08, 0.16, 0.02, 0.04, 0.3, 0.5, 0.0, 0.1), (16, 32, 1, 2, 3, 4, 5, 6))
+
+
+@pytest.mark.parametrize("B,N,M,radii,nsamples", [
+    # the three stage shapes of the serving path (B=64) and of training (B=192)
+    (64, 1024, 512, (0.02, 0.04), (16, 32)), (64, 512, 256, (0.04, 0.08), (16, 32)),
+    (64, 256, 128, (0.08, 0.16), (16, 32)), (192, 1024, 512, (0.02, 0.04), (16, 32)),
+    (192, 512, 256, (0.04, 0.08), (16, 32)), (192, 256, 128, (0.08, 0.16), (16, 32)),
+    # the JAX test's shapes
+    (4, 512, 256, (0.02, 0.04), (16, 32)), (3, 256, 128, (0.08, 0.16), (16, 32)),
+    (2, 100, 64, (0.3,), (8,)),
+    # each edge of the producers' shape (one warp with P = 1..16 up to 512
+    # points, P = 8 on several warps up to 4096, P = 16 up to 8192), with
+    # npoint past N so that the padding meets the tie rule
+    *[(3, n, n + 20, *R3) for n in (32, 64, 65, 256, 257, 512, 513, 1024, 4096, 4097, 8192)],
+    (2, 5000, 100, (0.01,), (7,)),
+    # R = 1, 5 and 8, which set the consumer warps (four per radius, fewer
+    # where the block has no room, then taking several radii each) and the
+    # ring (16 slots, 8 above 2048 points, 4 above 4096)
+    (4, 1024, 512, (0.04,), (32,)), (4, 1024, 300, *R8), (3, 256, 128, *R8B),
+    (2, 4096, 40, *R8), (2, 6000, 50, (0.01, 0.05, 0.1, 0.2, 0.3), (4, 8, 16, 32, 64)),
+    (2, 8192, 40, *R8),
+    # npoint = 1: only the last, FPS-free distance pass
+    *[(3, n, 1, (0.05, 0.3), (4, 40)) for n in (1, 100, 1024, 4096, 8192)]])
+def test_fused_kernel_equals_plain(dev, B, N, M, radii, nsamples):
+    """Bit for bit against its plain version and the separate kernels."""
+    _fused_both_ways(_cloud(dev, B, N, seed=N + M), M, radii, nsamples)
 
 
 def test_fused_kernel_exact_boundary(dev):
@@ -145,65 +182,10 @@ def test_fused_kernel_exact_boundary(dev):
     assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
 
 
-def _fused_both_ways(xyz, M, radii, nsamples):
-    """The fused kernel against its plain version and against the separate
-    kernels (FPS, gather, ball query in launches of at most 4 radii)."""
+def test_fused_kernel_refuses_more_than_8192_points(dev):
     launches = fused_mod.launches
-    got_idx, got_bq = fused_mod.fps_bq_fused_cuda(xyz, M, radii, nsamples)
-    torch.cuda.synchronize()
-    assert fused_mod.launches == launches + 1
-    want_idx, want_bq = pc.fps_bq_fused_ref(xyz, M, radii, nsamples)
-    sep_idx = fps_mod.fps_cuda(xyz, M)
-    centers = pc.gather_points(xyz, sep_idx)
-    sep_bq = sum((bq_mod.ball_query_cuda(radii[k:k + 4], nsamples[k:k + 4], xyz, centers)
-                  for k in range(0, len(radii), 4)), ())
-    torch.cuda.synchronize()
-    assert torch.equal(got_idx, want_idx) and torch.equal(got_idx, sep_idx)
-    assert len(got_bq) == len(want_bq) == len(sep_bq) == len(radii)
-    for got, want, sep in zip(got_bq, want_bq, sep_bq):
-        assert got.shape == (xyz.shape[0], M, want.shape[-1])
-        assert torch.equal(got, want) and torch.equal(got, sep)
-
-
-@pytest.mark.parametrize("N", [32, 64, 65, 256, 257, 512, 513, 1024, 4096])
-def test_fused_kernel_every_producer_shape(dev, N):
-    """Each edge of the producers' shape (one warp with P = 1..16 up to 512
-    points, then P = 8 on several warps), with npoint past N so that the
-    padding bits meet the tie rule, and an empty-ball radius."""
-    xyz = _cloud(dev, 3, N, seed=N + 7)
-    _fused_both_ways(xyz, N + 20, (0.05, 0.3, 0.0), (4, 40, 2))
-
-
-@pytest.mark.parametrize("B,N,M,radii,nsamples", [
-    (4, 1024, 512, (0.04,), (32,)), (3, 100, 64, (0.3,), (8,)),
-    (4, 1024, 300, (0.01, 0.02, 0.04, 0.08, 0.16, 0.3, 0.0, 1.0), (3, 16, 32, 5, 33, 64, 2, 7)),
-    (3, 256, 128, (0.08, 0.16, 0.02, 0.04, 0.3, 0.5, 0.0, 0.1), (16, 32, 1, 2, 3, 4, 5, 6)),
-    (2, 4096, 40, (0.01, 0.02, 0.04, 0.08, 0.16, 0.3, 0.0, 1.0), (8, 8, 8, 8, 8, 8, 8, 8))])
-def test_fused_kernel_one_and_eight_radii(dev, B, N, M, radii, nsamples):
-    """R = 1 and R = 8, which set the number of consumer warps (four per
-    radius, fewer where the block has no room: one at R = 8 and 4096
-    points, where the ring also drops from 16 slots to 8)."""
-    xyz = _cloud(dev, B, N, seed=N + len(radii))
-    _fused_both_ways(xyz, M, radii, nsamples)
-
-
-@pytest.mark.parametrize("N", [1, 100, 1024, 4096])
-def test_fused_kernel_one_center(dev, N):
-    """npoint = 1: only the last, FPS-free distance pass runs."""
-    _fused_both_ways(_cloud(dev, 3, N, seed=N + 2), 1, (0.05, 0.3), (4, 40))
-
-
-@pytest.mark.parametrize("N,M,radii", [
-    (1024, 512, (0.02, 0.04)), (512, 256, (0.04, 0.08)), (256, 128, (0.08, 0.16))])
-def test_fused_kernel_training_batch(dev, N, M, radii):
-    """The three stage shapes at the training batch, B = 192."""
-    _fused_both_ways(_cloud(dev, 192, N, seed=N + 192), M, radii, (16, 32))
-
-
-def test_fused_kernel_refuses_more_than_4096_points(dev):
-    launches = fused_mod.launches
-    with pytest.raises(ValueError, match="1..4096 points"):
-        fused_mod.fps_bq_fused_cuda(_cloud(dev, 1, 4097, seed=0), 8, (0.1,), (4,))
+    with pytest.raises(ValueError, match="1..8192 points"):
+        fused_mod.fps_bq_fused_cuda(_cloud(dev, 1, 8193, seed=0), 8, (0.1,), (4,))
     assert fused_mod.launches == launches
 
 
