@@ -49,11 +49,30 @@ non-zero and prints no result line):
 8. 3 score and 2 energy steps at a small size on the card and on the CPU,
    same weights, batches and draws: loss trajectories, final state and each
    parameter's update compared; a control run with zeroed gradients must
-   fail the update check.
+   fail the update check;
+9. drive ``runners/evaluation_single.py``'s four stages at the released
+   model's full width (K=50, N=1024, T0=0.55, batch 192, Heun-500) on a
+   synthetic Real/test tree of EVAL_SCENES scenes at 640x480 written by
+   the port's ``make_synthetic_nocs_dir`` (the scene count is the only
+   cut): seconds per stage, stage-2 poses/s, FPS 3 and ball query 3
+   launches in every stage-2 and stage-3 chunk, the headline mAP (about 0
+   with random weights); FPS and ball query held against their plain
+   versions on the largest category chunk; then stage 4 alone on a copy of
+   ``results_with_energy.pkl`` whose hypotheses lie within 1 degree and
+   0.5 cm of GT must reach a mean 10deg5cm mAP >= 99 over the classes
+   present;
+10. drive ``runners/evaluation_tracking.py::main_tracking`` (T0=0.15) on the
+   same tree: frames/s, FPS 3 and ball query 3 launches per frame, the
+   device busy share of one profiled frame, the tracking metrics;
+11. stages 2-4 and 3 tracking frames on a small tree on the card and on the
+   CPU (N=128, K=4, 8 Heun steps, same weights, prior rows and pose noise):
+   RTs, energies and pooled poses within CPU_GPU_TOL scaled by magnitude,
+   identical mAP tables.
 
-Checkpoints and metrics of phase 7 go under ``build/chip_smoke/`` in the
-checkout.  The last lines are the training numbers, the card line, one JSON
-line describing each kernel, and ``{"ok": true, "device": {...}}``.
+Checkpoints and metrics of phase 7 and the trees and results of phases
+9-11 go under ``build/chip_smoke/`` in the checkout.  The last lines are
+the training numbers, the evaluation and tracking numbers, the card line,
+one JSON line describing each kernel, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -81,6 +100,8 @@ SCORE_STEPS, ENERGY_STEPS = 4, 3  # training steps at full width
 TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL = 1e-4, 1e-4  # training CUDA vs CPU (phase 8)
 TRAIN_UPDATE_RTOL = 0.2  # phase 8: a parameter's update, relative to its norm
 OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"  # checkpoints, logs
+EVAL_SCENES = 24  # Real/test scenes of the synthetic tree (phases 9-10): the only cut
+EVAL_T0, TRACK_T0 = 0.55, 0.15  # scripts/eval_single.sh, scripts/eval_tracking.sh
 
 
 def card_line() -> str:
@@ -587,10 +608,13 @@ def busy_share(fn, label):
         print(f"profiler {label}: no device time recorded; busy share not measured", flush=True)
         return None
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    ours = {tag: sum(e.self_device_time_total for e in kernels if tag in e.key) / 1e3
+            for tag in ("fps_kernel", "ball_query_kernel")}
     print(f"profiler {label}: device busy {dev_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
           f"= {dev_us / wall_us:.4f}; {sum(e.count for e in kernels)} device kernels and copies; "
           "top: " + "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
-                              for e in top), flush=True)
+                              for e in top)
+          + f"; device ms of the port's kernels {ours}", flush=True)
     return dev_us / wall_us
 
 
@@ -875,6 +899,373 @@ def training_cpu_gpu_agreement(dev):
     return loss_diff, worst, upd, control
 
 
+def eval_config(nocs: str, result_dir: str, **overrides):
+    """The evaluation runners' configuration of the released model
+    (``scripts/eval_single.sh``: K=50, T0=0.55, batch 192, the default
+    Heun-500 sampler) on the synthetic tree ``nocs``."""
+    from genpose_tpu_torch.config import Config
+
+    return Config(data_path=nocs, result_dir=result_dir, test_source="real_test",
+                  num_points=N_POINTS, eval_repeat_num=K, T0=EVAL_T0,
+                  batch_size=B_TRAIN).replace(**overrides)
+
+
+def eval_agents(cfg, dev):
+    """Score and energy agents with the serving phase's seeded, perturbed weights."""
+    from genpose_tpu_torch.training.agent import PoseAgent
+    from genpose_tpu_torch.utils.weights import perturb_
+
+    score, energy = PoseAgent(cfg, "score", device=dev), PoseAgent(cfg, "energy", device=dev)
+    perturb_(score.model, seed=1)
+    perturb_(energy.model, seed=2)
+    return score, energy
+
+
+def hold_path_geometry(pts, label):
+    """FPS and ball query against their plain versions, bit for bit, along
+    the light encoder's three stages on clouds a driven path gives them."""
+    from genpose_tpu_torch.ops import pointcloud as pc
+    from genpose_tpu_torch.ops.ball_query_cuda import ball_query_cuda
+    from genpose_tpu_torch.ops.fps_cuda import fps_cuda
+
+    xyz = pts.contiguous()
+    for (_, npoint), radii in zip(FPS_SHAPES, BQ_RADII):
+        idx = pc.farthest_point_sample_ref(xyz, npoint)
+        if not torch.equal(fps_cuda(xyz, npoint), idx):
+            raise AssertionError(f"{label}: FPS != plain at N={xyz.shape[1]}")
+        centers = pc.gather_points(xyz, idx)
+        got = ball_query_cuda(radii, BQ_NSAMPLE, xyz, centers)
+        want = pc.ball_query_msg_ref(radii, BQ_NSAMPLE, xyz, centers)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{label}: ball query != plain at N={xyz.shape[1]}")
+        xyz = centers
+    return f"B{pts.shape[0]} N{pts.shape[1]}"
+
+
+def near_gt_results(src: str, out_dir: str, seed: int = 0) -> str:
+    """A copy of the results pkl ``src`` whose hypotheses lie within 1 degree
+    and 0.5 cm of each instance's GT (the synthetic detections are the GT
+    labels, instance for instance)."""
+    import pickle
+
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.default_rng(seed)
+    with open(src, "rb") as f:
+        data = pickle.load(f)
+    for entry in data.values():
+        res = entry["result"]
+        hyps = res["multi_hypothesis_pred_RTs"]
+        for i in range(hyps.shape[0]):
+            gt = np.asarray(res["gt_RTs"][i], np.float64)
+            R = gt[:3, :3] / np.cbrt(np.linalg.det(gt[:3, :3]))
+            for k in range(hyps.shape[1]):
+                w = rng.normal(size=3)
+                w *= np.radians(rng.uniform(0, 1)) / np.linalg.norm(w)
+                hyps[i, k] = np.eye(4)
+                hyps[i, k, :3, :3] = Rotation.from_rotvec(w).as_matrix() @ R
+                hyps[i, k, :3, 3] = gt[:3, 3] + rng.uniform(-0.0029, 0.0029, 3)
+    Path(out_dir).mkdir(parents=True, exist_ok=True)
+    with open(Path(out_dir) / "results_with_energy.pkl", "wb") as f:
+        pickle.dump(data, f)
+    return out_dir
+
+
+def present_class_map(table_dir: str, results_pkl: str, degree: int = 10, shift: float = 5):
+    """Mean pose mAP at (degree, shift) over the classes present in the GT."""
+    import pickle
+
+    with open(Path(table_dir) / "mAP_Acc.pkl", "rb") as f:
+        tables = pickle.load(f)
+    with open(results_pkl, "rb") as f:
+        data = pickle.load(f)
+    present = sorted({int(c) for e in data.values() for c in e["result"]["gt_class_ids"]})
+    d, s = tables["degree_thres_list"].index(degree), tables["shift_thres_list"].index(shift)
+    return float(tables["pose_aps"][present, d, s].mean()), present
+
+
+def evaluation_path(dev, card):
+    """Phase 9: ``evaluation_single``'s four stages at the released model's
+    full width on a synthetic Real/test tree of EVAL_SCENES scenes at
+    640x480, with the launch counts read around stages 2 and 3; then stage 4
+    on its own from near-GT hypotheses."""
+    import pickle
+    import shutil
+
+    from genpose_tpu_torch.data.synthetic import (make_synthetic_mrcnn_results,
+                                                  make_synthetic_nocs_dir)
+    from genpose_tpu_torch.ops import ball_query_cuda, fps_cuda
+    from genpose_tpu_torch.runners import evaluation_single as ev
+
+    root = OUT_DIR / "eval"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    nocs = make_synthetic_nocs_dir(str(root / "nocs"), n_camera_scenes=1,
+                                   n_real_scenes=EVAL_SCENES, seed=0)
+    make_synthetic_mrcnn_results(nocs, str(root / "single"), "real_test")
+    tree_s = time.perf_counter() - t0
+    cfg = eval_config(nocs, str(root / "single"))
+    score, energy = eval_agents(cfg, dev)
+    base = root / "single" / "evaluation_results"
+    seg, inf_dir = str(base / "segmentation_results_real_test.pkl"), str(base / "real_test_repeat_50")
+
+    secs = {}
+    t0 = time.perf_counter()
+    ev.detect_mrcnn_results(cfg, seg)
+    secs["stage 1"] = time.perf_counter() - t0
+    _, categorized = ev.unpack_data(cfg, seg)
+    largest = max(categorized.values(), key=lambda d: len(d["pts"]))
+    instances = sum(len(d["pts"]) for d in categorized.values())
+    held = hold_path_geometry(ev.zero_center_batch(largest["pts"], dev)["zero_mean_pts"],
+                              "evaluation chunk")
+
+    meters = {"stage 2": StepMeter(score, "sample"), "stage 3": StepMeter(energy, "get_energy")}
+    launches = {}
+    for stage, run in (("stage 2", lambda: ev.inference_pose(cfg, score, seg, inf_dir)),
+                       ("stage 3", lambda: ev.inference_energy(cfg, energy, inf_dir))):
+        torch.cuda.synchronize()
+        fps_cuda.launches = ball_query_cuda.launches = 0
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        secs[stage] = time.perf_counter() - t0
+        launches[stage] = {"fps": fps_cuda.launches, "ball_query": ball_query_cuda.launches}
+    for m in meters.values():
+        m.close()
+    t0 = time.perf_counter()
+    headline = ev.evaluate(cfg, inf_dir)
+    ev.write_headline(inf_dir, headline)
+    secs["stage 4"] = time.perf_counter() - t0
+
+    chunks = sum(-(-len(d["pts"]) // cfg.batch_size) for d in categorized.values())
+    for stage, m in meters.items():
+        per_chunk = [(c["fps"], c["ball_query"]) for c in m.calls]
+        want = {"fps": 3 * chunks, "ball_query": 3 * chunks}
+        if len(per_chunk) != chunks or set(per_chunk) != {(3, 3)} or launches[stage] != want:
+            raise AssertionError(f"evaluation {stage}: per-chunk launches {per_chunk}, total "
+                                 f"{launches[stage]}, expected 3 + 3 in each of {chunks} chunks")
+    with open(Path(inf_dir) / "results_with_energy.pkl", "rb") as f:
+        results = pickle.load(f)
+    for key, entry in results.items():
+        res, valid = entry["result"], entry["valid_inst"]
+        rts, energy_k = res["multi_hypothesis_pred_RTs"][valid], res["energy"][valid]
+        if (rts.shape[1:] != (K, 4, 4) or not np.isfinite(rts).all()
+                or not np.isfinite(energy_k).all() or (np.diff(energy_k, axis=1) > 0).any()):
+            raise AssertionError(f"evaluation: {key} holds malformed hypotheses or energies")
+    poses_s = instances / secs["stage 2"]
+    print(f"evaluation (Real/test, {EVAL_SCENES} synthetic scenes at 640x480, {instances} "
+          f"instances in {chunks} chunks; N={N_POINTS}, K={K}, T0={EVAL_T0}, batch "
+          f"{cfg.batch_size}, {cfg.sampling_steps} Heun steps): tree {tree_s:.3f} s; "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in secs.items())
+          + f"; stage 2 {poses_s:.2f} poses/s; launches per chunk FPS 3 + ball query 3 in "
+          f"stage 2 ({launches['stage 2']}) and stage 3 ({launches['stage 3']}); kernels held "
+          f"against their plain versions at {held}; {card}", flush=True)
+    print(f"evaluation headline mAP (random weights, so about 0): "
+          f"{ {k: round(float(v), 4) for k, v in headline.items()} }", flush=True)
+
+    near = near_gt_results(str(Path(inf_dir) / "results_with_energy.pkl"), str(root / "near_gt"))
+    ev.evaluate(cfg, near)
+    table_dir = Path(near) / "results" / cfg.pooling_mode / cfg.ranker
+    mean_map, present = present_class_map(table_dir, str(Path(near) / "results_with_energy.pkl"))
+    if mean_map < 0.99:
+        raise AssertionError(f"stage 4 on near-GT hypotheses: 10deg5cm mAP {mean_map} < 0.99 "
+                             f"over classes {present}")
+    print(f"stage 4 on near-GT hypotheses (within 1 deg, 0.5 cm): mean 10deg5cm mAP "
+          f"{100 * mean_map:.2f} over the classes present {present}", flush=True)
+    return {"instances": instances, "chunks": chunks, "seconds": secs, "tree_s": tree_s,
+            "stage2_poses_per_s": poses_s, "launches": launches,
+            "headline": {k: float(v) for k, v in headline.items()},
+            "near_gt_10d5cm": mean_map}, nocs, (score, energy)
+
+
+def tracking_path(dev, card, nocs, agents):
+    """Phase 10: ``evaluation_tracking.main_tracking`` (T0=0.15) at full width
+    on the phase-9 tree, the launch counts read around each frame; then one
+    frame profiled."""
+    from genpose_tpu_torch.data.synthetic import make_synthetic_mrcnn_results
+    from genpose_tpu_torch.ops import ball_query_cuda, fps_cuda
+    from genpose_tpu_torch.runners import evaluation_single as ev
+    from genpose_tpu_torch.runners import evaluation_tracking as et
+    from genpose_tpu_torch.utils.tracking import add_noise_to_RT, srt_to_pose9d
+
+    result_dir = str(OUT_DIR / "eval" / "tracking")
+    make_synthetic_mrcnn_results(nocs, result_dir, "real_test", tracking=True)
+    cfg = eval_config(nocs, result_dir, T0=TRACK_T0)
+    score, energy = agents
+    frames, real = [], et.track_frame
+
+    def metered(*args, **kwargs):
+        torch.cuda.synchronize()
+        f0, b0, t0 = fps_cuda.launches, ball_query_cuda.launches, time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        frames.append({"s": time.perf_counter() - t0, "fps": fps_cuda.launches - f0,
+                       "ball_query": ball_query_cuda.launches - b0,
+                       "objects": int(args[3]["zero_mean_pts"].shape[0])})
+        return out
+
+    et.track_frame = metered
+    try:
+        torch.cuda.synchronize()
+        fps_cuda.launches = ball_query_cuda.launches = 0
+        t0 = time.perf_counter()
+        metrics = et.main_tracking(cfg, tracking=True, T0=TRACK_T0, device=dev,
+                                   score_agent=score, energy_agent=energy)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        et.track_frame = real
+    launches = {"fps": fps_cuda.launches, "ball_query": ball_query_cuda.launches}
+    if (not frames or {(f["fps"], f["ball_query"]) for f in frames} != {(3, 3)}
+            or launches != {"fps": 3 * len(frames), "ball_query": 3 * len(frames)}):
+        raise AssertionError(f"tracking: frames {frames}, launches {launches}: expected FPS 3 "
+                             f"and ball query 3 per frame")
+    for name, m in metrics.items():
+        if not np.isfinite(np.asarray(m["mean_error"], np.float64)).all():
+            raise AssertionError(f"tracking: non-finite mean error for {name}")
+
+    with open(Path(nocs) / "Real" / "test_list.txt") as f:
+        first = sorted("Real/" + line.strip() for line in f)[0]
+    frame = et.extract_single_frame_data(cfg, first, np.random.default_rng(0))
+    batch = ev.zero_center_batch(frame["pts"], dev)
+    held = hold_path_geometry(batch["zero_mean_pts"], "tracking frame")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    gt = torch.as_tensor(np.asarray(frame["gt_pose"], np.float32), device=dev)
+    init = srt_to_pose9d(add_noise_to_RT(gt, generator=gen))
+    init[:, -3:] -= batch["pts_center"]
+    busy = busy_share(lambda: et.track_frame(cfg, score, energy, batch, init, TRACK_T0, gen),
+                      "one tracking frame")
+    frame_s = [f["s"] for f in frames]
+    print(f"tracking (Real/test, {len(frames)} frames, {sum(f['objects'] for f in frames)} "
+          f"objects; N={N_POINTS}, K={K}, T0={TRACK_T0}, {cfg.sampling_steps} Heun steps): "
+          f"{len(frames) / wall:.3f} frames/s ({wall:.3f} s; a frame's device chain median "
+          f"{np.median(frame_s):.4f} s); launches per frame FPS 3 + ball query 3 ({launches}); "
+          f"kernels held against their plain versions at {held}; {card}", flush=True)
+    print("tracking metrics (random weights): " + "; ".join(
+        f"{k}: mean error {np.round(np.asarray(m['mean_error'], np.float64), 3).tolist()}, "
+        f"5d5cm {m['5d5cm_acc']:.4f}" for k, m in metrics.items()), flush=True)
+    return {"frames": len(frames), "frames_per_s": len(frames) / wall, "wall_s": wall,
+            "frame_s_median": float(np.median(frame_s)), "launches": launches,
+            "busy_share": busy}
+
+
+def _scaled_diff(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / (1.0 + np.abs(b)))) if a.size else 0.0
+
+
+def eval_cpu_gpu_agreement(dev):
+    """Phase 11: evaluation stages 2-4 and 3 tracking frames on a small tree
+    (3 scenes; N=128, K=4, 8 Heun steps), once on the card and once on the
+    CPU with the same weights, the same prior rows and the same pose noise.
+
+    Stage 1 runs once, on the host; its clouds (and the tracking frames')
+    are rounded to a 2^-10 m grid so that the zero-centering mean is exact
+    on both devices and the kernels see what the plain versions see.  What
+    remains is the GEMM summation order, held to CPU_GPU_TOL scaled by
+    magnitude.  The mAP tables of the two results pkls must be identical."""
+    import dataclasses
+    import pickle
+
+    from genpose_tpu_torch.data.synthetic import (make_synthetic_mrcnn_results,
+                                                  make_synthetic_nocs_dir)
+    from genpose_tpu_torch.runners import evaluation_single as ev
+    from genpose_tpu_torch.runners import evaluation_tracking as et
+
+    root = OUT_DIR / "eval_small"
+    nocs = make_synthetic_nocs_dir(str(root / "nocs"), n_camera_scenes=1, n_real_scenes=3,
+                                   seed=1)
+    small = dict(num_points=128, eval_repeat_num=4, sampling_steps=8, batch_size=4)
+    cfg = eval_config(nocs, str(root / "single"), **small)
+    make_synthetic_mrcnn_results(nocs, cfg.result_dir, "real_test")
+    seg = str(root / "single" / "seg.pkl")
+    ev.detect_mrcnn_genpose(cfg, seg)
+    grid = lambda p: (np.round(np.asarray(p) * 1024) / 1024).astype(np.float32)  # noqa: E731
+    with open(seg, "rb") as f:
+        data = pickle.load(f)
+    for entry in data.values():
+        entry["valid_pts"] = [grid(p) for p in entry["valid_pts"]]
+    with open(seg, "wb") as f:
+        pickle.dump(data, f)
+
+    gpu = eval_agents(cfg, dev)
+    cpu = eval_agents(cfg, torch.device("cpu"))
+    for g, c in zip(gpu, cpu):
+        c.model.load_state_dict(g.model.state_dict())
+    noise = torch.from_numpy(np.random.default_rng(7).normal(size=(64, 9)).astype(np.float32))
+    sde = gpu[0].sde
+
+    def prior(shape, T=None, generator=None, device=None):
+        return noise[:shape[0]].to(device) * sde.marginal_prob(None, T)[1]
+
+    for s, _ in (gpu, cpu):
+        s.sde = dataclasses.replace(sde, prior=prior)
+
+    out, worst = {}, {}
+    for side, (s, e) in (("cuda", gpu), ("cpu", cpu)):
+        d = str(root / "single" / side)
+        ev.inference_pose(cfg, s, seg, d)
+        ev.inference_energy(cfg, e, d)
+        ev.evaluate(cfg, d)
+        out[side] = d
+    for name, keys in (("results_wo_energy.pkl", ("multi_hypothesis_pred_RTs",)),
+                       ("results_with_energy.pkl", ("multi_hypothesis_pred_RTs", "energy"))):
+        with open(Path(out["cuda"]) / name, "rb") as fa, open(Path(out["cpu"]) / name, "rb") as fb:
+            a, b = pickle.load(fa), pickle.load(fb)
+        for k in keys:
+            worst[f"{name}:{k}"] = max(_scaled_diff(a[p]["result"][k], b[p]["result"][k])
+                                       for p in a)
+    table = lambda d: Path(d) / "results" / cfg.pooling_mode / cfg.ranker / "mAP_Acc.pkl"  # noqa
+    with open(table(out["cuda"]), "rb") as fa, open(table(out["cpu"]), "rb") as fb:
+        ta, tb = pickle.load(fa), pickle.load(fb)
+    for k in ("iou_aps", "pose_aps", "iou_acc", "pose_acc"):
+        if not np.array_equal(ta[k], tb[k], equal_nan=True):
+            raise AssertionError(f"CUDA vs CPU evaluation: {k} tables differ")
+
+    # tracking: 3 frames, the grid-rounded clouds, fixed pose-noise draws
+    tcfg = eval_config(nocs, str(root / "tracking"), T0=TRACK_T0, **small)
+    make_synthetic_mrcnn_results(nocs, tcfg.result_dir, "real_test", tracking=True)
+    rng = np.random.default_rng(8)
+    draws = [tuple(torch.from_numpy(x.astype(np.float32)) for x in (
+        np.abs(rng.normal(size=8)) * np.pi / 36, rng.normal(size=8) * 0.03,
+        rng.normal(size=(8, 3)), rng.normal(size=(8, 4)))) for _ in range(3)]
+    real_extract, real_track = et.extract_single_frame_data, et.track_frame
+    pooled = {"cuda": [], "cpu": []}
+    running = []  # the side whose frames are being tracked
+
+    def extract(*args):
+        frame = real_extract(*args)
+        if frame is not None:
+            frame["pts"] = [grid(p) for p in frame["pts"]]
+        return frame
+
+    def track(*args, **kwargs):
+        R, t = real_track(*args, **kwargs)
+        pooled[running[-1]].append(torch.cat([R.flatten(1), t], 1).cpu().numpy())
+        return R, t
+
+    et.extract_single_frame_data, et.track_frame = extract, track
+    try:
+        for side, (s, e) in (("cuda", gpu), ("cpu", cpu)):
+            running.append(side)
+            et.main_tracking(tcfg, tracking=True, T0=TRACK_T0, device=s.device, score_agent=s,
+                             energy_agent=e, noise_draws=lambda n, b: tuple(x[:b] for x in draws[n]))
+    finally:
+        et.extract_single_frame_data, et.track_frame = real_extract, real_track
+    if len(pooled["cuda"]) != 3 or len(pooled["cpu"]) != 3:
+        raise AssertionError(f"CUDA vs CPU tracking: {len(pooled['cuda'])} / "
+                             f"{len(pooled['cpu'])} frames, expected 3")
+    worst["tracking pooled poses"] = max(_scaled_diff(a, b)
+                                         for a, b in zip(pooled["cuda"], pooled["cpu"]))
+    bad = {k: v for k, v in worst.items() if v > CPU_GPU_TOL}
+    if bad:
+        raise AssertionError(f"CUDA vs CPU evaluation / tracking: {bad} > {CPU_GPU_TOL}")
+    print("CUDA vs CPU evaluation (3 scenes, N=128, K=4, 8 Heun steps) and tracking (3 "
+          "frames): max |a-b|/(1+|b|) " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" <= {CPU_GPU_TOL}; mAP tables identical", flush=True)
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -922,6 +1313,12 @@ def main() -> int:
     training = training_path(dev, card)
     torch.cuda.empty_cache()
     training_cpu_gpu_agreement(dev)
+    torch.cuda.empty_cache()
+    evaluation, nocs, agents = evaluation_path(dev, card)
+    tracking = tracking_path(dev, card, nocs, agents)
+    del agents
+    torch.cuda.empty_cache()
+    eval_cpu_gpu_agreement(dev)
 
     fps_launches = results["ode"][1]["fps"]
     bq_launches = results["ode"][1]["ball_query"]
@@ -940,21 +1337,32 @@ def main() -> int:
                 "library_ms": None, "per_shape": rows, **extra}
 
     train_launches = {k: training["score"]["launches"][k] for k in ("fps", "ball_query")}
+
+    def path_launches(k):
+        """A kernel's launches in each run of the evaluation and tracking paths."""
+        return {"evaluation_stage2_launches": evaluation["launches"]["stage 2"][k],
+                "evaluation_stage3_launches": evaluation["launches"]["stage 3"][k],
+                "evaluation_chunks": evaluation["chunks"],
+                "tracking_launches": tracking["launches"][k], "tracking_frames": tracking["frames"]}
+
     kernels = [
         summary("fps", "genpose_tpu_torch/csrc/fps.cu", "genpose_tpu/ops/fps_pallas.py:75",
                 fps_rows, fps_launches, profiled_device_ms=profiled["ode"].get("fps"),
-                path="serving request", training_score_run_launches=train_launches["fps"]),
+                path="serving request", training_score_run_launches=train_launches["fps"],
+                **path_launches("fps")),
         summary("ball_query", "genpose_tpu_torch/csrc/ball_query.cu",
                 "genpose_tpu/ops/ball_query_pallas.py:84", bq_rows, bq_launches,
                 profiled_device_ms=profiled["ode"].get("ball_query"),
                 path="serving request",
-                training_score_run_launches=train_launches["ball_query"]),
+                training_score_run_launches=train_launches["ball_query"],
+                **path_launches("ball_query")),
         summary("fps_bq_fused", "genpose_tpu_torch/csrc/fps_bq_fused.cu",
                 "genpose_tpu/ops/fps_bq_fused.py:135", fused_rows, fused_launches,
                 profiled_device_ms=fused_profiled,
                 path="geometry chain (tools/bench_fused_geometry.py)", chain_ms=chain_times),
     ]
     print(json.dumps({"training": training}), flush=True)
+    print(json.dumps({"evaluation": evaluation, "tracking": tracking}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -2,12 +2,14 @@
 
 Module paths mirror the JAX package (``genpose_tpu_torch/ops/pose.py`` is the
 counterpart of ``genpose_tpu/ops/pose.py``, and so on).  Plain tensor code is
-PyTorch; the two point-cloud kernels of the serving path (furthest point
-sampling and ball query) are hand-written CUDA C++ for ``sm_90a`` under
+PyTorch; the point-cloud kernels (furthest point sampling, ball query and
+the fused FPS + ball query) are hand-written CUDA C++ for ``sm_90a`` under
 ``csrc/``, built on first use by ``ops/_build.py``.
 
-This package imports ``torch``, numpy and the standard library only.  Entry
-points (``InferencePipeline``, ``PoseAgent``, ``build_model``) run on
+This package imports ``torch``, numpy and the standard library only (and
+matplotlib, when it is installed, to draw the mAP curve).  Entry points
+(``InferencePipeline``, ``PoseAgent``, ``build_model``, the trainer and the
+evaluation and tracking runners) run on
 ``device="cuda"`` unless the caller passes ``device="cpu"``, and raise when
 CUDA is asked for but absent.
 

@@ -1,1 +1,1 @@
-"""Data: augmentation, batch processing and synthetic batches."""
+"""Data: augmentation, batch processing, eval-time image utilities and synthetic data."""

@@ -9,6 +9,9 @@
 
 Both take ``score_fn(pose, t) -> score`` closed over the encoded cloud, and
 draw the prior from ``sde.prior`` with an explicit ``torch.Generator``.
+With ``init_x`` (tracking: the previous frame's pose, started at a reduced
+``T0``) the integration starts from ``init_x + prior`` (JAX
+``samplers.py:69,189``; reference ``samplers.py:180``).
 Each step runs eagerly; the adaptive sampler's accept/reject control lives
 on the device, as in the JAX ``while_loop``, and the host reads one flag
 per attempt to decide whether to stop.  Capturing a step in a CUDA graph is
@@ -77,21 +80,24 @@ def _sampler_device(device, pts_center: Optional[torch.Tensor],
 
 
 def _prior(sde: SDE, batch_size: int, pose_mode: str, T: float,
-           generator: Optional[torch.Generator], device) -> torch.Tensor:
-    return sde.prior((batch_size, get_pose_dim(pose_mode)), T=T, generator=generator,
-                     device=device)
+           generator: Optional[torch.Generator], device,
+           init_x: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The start of the integration: a prior draw at T, added to ``init_x`` if given."""
+    x = sde.prior((batch_size, get_pose_dim(pose_mode)), T=T, generator=generator,
+                  device=device)
+    return x if init_x is None else init_x + x
 
 
 def ode_sampler(score_fn: Callable, batch_size: int, sde: SDE, pose_mode: str = "rot_matrix",
                 num_steps: int = 500, T0: Optional[float] = None,
-                pts_center: Optional[torch.Tensor] = None,
+                init_x: Optional[torch.Tensor] = None, pts_center: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None, device=None) -> torch.Tensor:
     """Heun PF-ODE sampler.  Returns x [batch_size, pose_dim] in the camera frame."""
     T = sde.T if T0 is None else T0
     device = _sampler_device(device, pts_center, generator)
     if pts_center is None:
         pts_center = torch.zeros((batch_size, 3), device=device)
-    x = _prior(sde, batch_size, pose_mode, T, generator, device)
+    x = _prior(sde, batch_size, pose_mode, T, generator, device, init_x)
     ts = _linspace(T, sde.eps, num_steps, x.device)
     for i in range(num_steps - 1):
         t, t_next = ts[i], ts[i + 1]
@@ -139,6 +145,7 @@ def _rms(v: torch.Tensor) -> torch.Tensor:
 
 def ode_sampler_adaptive(score_fn: Callable, batch_size: int, sde: SDE,
                          pose_mode: str = "rot_matrix", T0: Optional[float] = None,
+                         init_x: Optional[torch.Tensor] = None,
                          pts_center: Optional[torch.Tensor] = None, return_stats: bool = False,
                          generator: Optional[torch.Generator] = None, device=None):
     """Adaptive PF-ODE sampler: Dormand-Prince RK45 with scipy's controller.
@@ -158,7 +165,7 @@ def ode_sampler_adaptive(score_fn: Callable, batch_size: int, sde: SDE,
     device = _sampler_device(device, pts_center, generator)
     if pts_center is None:
         pts_center = torch.zeros((batch_size, 3), device=device)
-    x0 = _prior(sde, batch_size, pose_mode, T, generator, device)
+    x0 = _prior(sde, batch_size, pose_mode, T, generator, device, init_x)
     dev = x0.device
 
     def ode_dx(x, t):

@@ -1,1 +1,1 @@
-"""Evaluation: pose error metrics."""
+"""Evaluation: pose error metrics and the NOCS mAP protocol."""

@@ -3,7 +3,8 @@
 The subset the serving and training paths need: pose dims, quaternion <->
 matrix, the reference's *transposed* 6D convention (``utils/misc.py:136``:
 the 6D vector holds the first two **columns** of R), rotation re-projection,
-(R, t) inversion and the 4x4 eigen-average of quaternions
+(R, t) inversion, pose vector <-> (R, t) <-> 4x4, and the 4x4
+eigen-average of quaternions
 (``utils/misc.py:227-249``).  All functions are
 batched over leading axes and keep the JAX package's operation order.
 """
@@ -124,6 +125,21 @@ def inverse_RT(rot: torch.Tensor, trans: torch.Tensor):
     """Invert (R, t): returns (R^T, -R^T t) (reference ``misc.py:192-204``)."""
     inv_rot = rot.transpose(-1, -2)
     return inv_rot, -torch.einsum("...ij,...j->...i", inv_rot, trans)
+
+
+def pose_to_rt(pose: torch.Tensor, pose_mode: str):
+    """Split a pose vector into (R [..., 3, 3], t [..., 3])."""
+    idx = get_pose_dim(pose_mode) - 3
+    return get_rot_matrix(pose[..., :idx], pose_mode), pose[..., idx:]
+
+
+def rt_to_matrix4(rot: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
+    """(R, t) -> homogeneous [..., 4, 4]."""
+    m = torch.zeros(rot.shape[:-2] + (4, 4), dtype=rot.dtype, device=rot.device)
+    m[..., :3, :3] = rot
+    m[..., :3, 3] = trans
+    m[..., 3, 3] = 1.0
+    return m
 
 
 def average_quaternion_batch(Q: torch.Tensor, weights: torch.Tensor | None = None) -> torch.Tensor:

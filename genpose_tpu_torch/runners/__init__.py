@@ -1,1 +1,1 @@
-"""Serving pipeline."""
+"""Entry points: serving, training, single-frame evaluation and tracking."""

@@ -312,11 +312,14 @@ class PoseAgent:
     @torch.no_grad()
     def sample(self, batch, generator: Optional[torch.Generator] = None, repeat_num: int = 1,
                sampler: Optional[str] = None, num_steps: Optional[int] = None,
-               T0: Optional[float] = None, geometry=None, return_geometry: bool = False):
+               T0: Optional[float] = None, init_x: Optional[torch.Tensor] = None,
+               geometry=None, return_geometry: bool = False):
         """batch {"zero_mean_pts" [bs, N, 3], "pts_center" [bs, 3]} ->
         pred_pose [bs, repeat_num, pose_dim] in the camera frame, and with
         ``return_geometry`` the encoder geometry of the cloud too (computed
-        here if not given), for an energy pass over the same cloud."""
+        here if not given), for an energy pass over the same cloud.
+        ``init_x`` [bs, pose_dim] (zero-mean frame): each row's K samples
+        start from it plus the prior at ``T0`` (``agent.py:502-503``)."""
         sampler = sampler or (self.cfg.sampler_mode[0] if self.cfg.sampler_mode else "ode")
         num_steps = num_steps or self.cfg.sampling_steps
         pts = batch["zero_mean_pts"]
@@ -327,7 +330,9 @@ class PoseAgent:
             feat = self._encode(pts, train=False, geometry=geometry)
             center_rep = batch["pts_center"].repeat_interleave(repeat_num, dim=0)
             score_fn = self._head_score_fn(feat, repeat=repeat_num)
-            kw = dict(T0=T0, pts_center=center_rep, generator=generator, device=pts.device)
+            init_rep = None if init_x is None else init_x.repeat_interleave(repeat_num, dim=0)
+            kw = dict(T0=T0, init_x=init_rep, pts_center=center_rep, generator=generator,
+                      device=pts.device)
             if sampler == "ode":
                 res = ode_sampler(score_fn, bs * repeat_num, self.sde, self.cfg.pose_mode,
                                   num_steps=num_steps, **kw)

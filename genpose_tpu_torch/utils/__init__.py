@@ -1,1 +1,1 @@
-"""Device selection and weight conversion."""
+"""Device selection, weight conversion, logging, PNG files and tracking noise."""

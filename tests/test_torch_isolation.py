@@ -45,8 +45,36 @@ def test_scan_sees_the_whole_port():
     for must in ("chip_smoke.py", "genpose_tpu_torch/runners/serving.py",
                  "genpose_tpu_torch/ops/fps_cuda.py", "genpose_tpu_torch/ops/ball_query_cuda.py",
                  "genpose_tpu_torch/ops/fps_bq_fused_cuda.py",
-                 "genpose_tpu_torch/tools/bench_fused_geometry.py"):
+                 "genpose_tpu_torch/tools/bench_fused_geometry.py",
+                 "genpose_tpu_torch/runners/evaluation_single.py",
+                 "genpose_tpu_torch/runners/evaluation_tracking.py",
+                 "genpose_tpu_torch/eval/nocs_eval.py", "genpose_tpu_torch/data/dataset_utils.py",
+                 "genpose_tpu_torch/utils/png.py", "genpose_tpu_torch/utils/tracking.py"):
         assert must in names
+
+
+def _module_level_imports(path):
+    """Roots imported outside any function body."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    nested = {id(n) for f in ast.walk(tree)
+              if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+              for n in ast.walk(f)}
+    for node in ast.walk(tree):
+        if id(node) in nested:
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_needs_no_image_library(path):
+    """The card's machine has no OpenCV, PIL or matplotlib: the port never
+    imports the first two and imports matplotlib only inside the function
+    that draws a curve (``eval/nocs_eval.py::plot_mAP``)."""
+    assert not {"cv2", "PIL"} & set(_imported_roots(path))
+    assert "matplotlib" not in set(_module_level_imports(path))
 
 
 def _flags(module):

@@ -86,6 +86,32 @@ def test_adaptive_ode_sampler_matches_jax(setup):
     np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("sampler", ["ode", "ode_adaptive"])
+def test_samplers_start_from_init_x_as_jax(setup, sampler):
+    """Tracking's prior: the integration starts at ``init_x`` + the prior
+    draw at T0 = 0.15 (JAX ``samplers.py:69`` and the adaptive sampler's
+    ``x0``).  rtol = atol = 1e-5 for both samplers."""
+    s = setup
+    init_x = np.random.default_rng(5).normal(size=(B * K, 9)).astype(np.float32)
+    kw = dict(T0=0.15, init_x=init_x)
+    if sampler == "ode":
+        run = jax.jit(lambda: jax_ode(s["jscore"], jax.random.PRNGKey(0), B * K, s["jsde"],
+                                      num_steps=6, pts_center=jnp.asarray(s["center"]),
+                                      **kw)[1])
+        port = lambda **k: ode_sampler(s["tscore"], B * K, s["tsde"], num_steps=6, **k)  # noqa: E731
+    else:
+        run = jax.jit(lambda: jax_ode_adaptive(s["jscore"], jax.random.PRNGKey(0), B * K,
+                                               s["jsde"], pts_center=jnp.asarray(s["center"]),
+                                               **kw)[1])
+        port = lambda **k: ode_sampler_adaptive(s["tscore"], B * K, s["tsde"], **k)  # noqa: E731
+    want = np.asarray(run())
+    with torch.no_grad():
+        got = port(T0=0.15, init_x=t_np(init_x), pts_center=t_np(s["center"])).numpy()
+        without = port(T0=0.15, pts_center=t_np(s["center"])).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert np.abs(got - without).max() > 0.1  # init_x moved the start
+
+
 def test_sort_poses_by_energy_matches_jax_with_ties():
     rng = np.random.default_rng(3)
     poses = rng.normal(size=(3, 8, 9)).astype(np.float32)
