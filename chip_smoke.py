@@ -63,16 +63,33 @@ non-zero and prints no result line):
    present;
 10. drive ``runners/evaluation_tracking.py::main_tracking`` (T0=0.15) on the
    same tree: frames/s, FPS 3 and ball query 3 launches per frame, the
-   device busy share of one profiled frame, the tracking metrics;
+   device busy share of one profiled frame, the tracking metrics.  Phases 9
+   and 10 run the agents unfrozen (``main_tracking``'s ``freeze`` is made a
+   no-op for the run): they are the eager arms of phase 12;
 11. stages 2-4 and 3 tracking frames on a small tree on the card and on the
    CPU (N=128, K=4, 8 Heun steps, same weights, prior rows and pose noise):
    RTs, energies and pooled poses within CPU_GPU_TOL scaled by magnitude,
-   identical mAP tables.
+   identical mAP tables;
+12. frozen against eager (``freeze()``, CUDA graphs): a full-width served
+   request under each sampler, eagerly and then frozen from the same
+   generator state; stages 2-3 of phase 9's tree with both agents frozen
+   (as ``evaluation_single.main`` runs them); ``main_tracking`` as a user
+   calls it on phase 10's frames.  Each frozen result must equal its eager
+   arm bit for bit or within FROZEN_TOL scaled (the line says which), the
+   mAP tables and tracking metrics must be identical, FPS 3 and ball query
+   3 must launch per request, chunk and frame, and the frozen-dispatch
+   counter must count 2 per request, chunk pair and frame.  After
+   ``perturb_`` of the score weights the score agent must run eagerly, and
+   a new ``freeze()`` must equal eager under the new weights.  Prints each
+   arm's seconds, poses/s or frames/s, busy share and device kernels, the
+   warm-up and capture seconds of each program and the device memory the
+   frozen serving programs hold.
 
 Checkpoints and metrics of phase 7 and the trees and results of phases
-9-11 go under ``build/chip_smoke/`` in the checkout.  The last lines are
-the training numbers, the evaluation and tracking numbers, the card line,
-one JSON line describing each kernel, and ``{"ok": true, "device": {...}}``.
+9-12 go under ``build/chip_smoke/`` in the checkout.  The last lines are
+the training numbers, the evaluation and tracking numbers, the frozen arms,
+the card line, one JSON line describing each kernel, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -592,8 +609,10 @@ class StepMeter:
         delattr(self.obj, self.name)
 
 
-def busy_share(fn, label):
-    """fn() once under torch.profiler: device time over host wall time."""
+def device_profile(fn, label):
+    """fn() once under torch.profiler: device busy share of the host wall
+    time, device kernels and copies, device ms (None where no device time
+    was recorded, which is printed)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
@@ -606,16 +625,19 @@ def busy_share(fn, label):
     dev_us = sum(e.self_device_time_total for e in kernels)
     if dev_us <= 0:
         print(f"profiler {label}: no device time recorded; busy share not measured", flush=True)
-        return None
+        return {"busy": None, "kernels": None, "device_ms": None, "wall_ms": wall_us / 1e3}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     ours = {tag: sum(e.self_device_time_total for e in kernels if tag in e.key) / 1e3
             for tag in ("fps_kernel", "ball_query_kernel")}
+    n_kernels = sum(e.count for e in kernels)
     print(f"profiler {label}: device busy {dev_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
-          f"= {dev_us / wall_us:.4f}; {sum(e.count for e in kernels)} device kernels and copies; "
+          f"= {dev_us / wall_us:.4f}; {n_kernels} device kernels and copies; "
           "top: " + "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
                               for e in top)
           + f"; device ms of the port's kernels {ours}", flush=True)
-    return dev_us / wall_us
+    return {"busy": dev_us / wall_us, "kernels": n_kernels, "device_ms": dev_us / 1e3,
+            "wall_ms": wall_us / 1e3}
+
 
 
 def score_step_split(agent, raw, gen):
@@ -781,13 +803,13 @@ def training_path(dev, card):
 
     gen = torch.Generator(device=dev).manual_seed(6)
     batch = process_batch(loader[1], scfg.pose_mode, gen, scfg.pts_aug, device=dev)
-    busy_score = busy_share(lambda: score.train_step(batch, gen), "one score step")
+    busy_score = device_profile(lambda: score.train_step(batch, gen), "one score step")["busy"]
 
     def energy_iteration():
         cands, geom = teacher.sample(batch, generator=gen, repeat_num=5, return_geometry=True)
         energy.train_step_energy(batch, cands, gen, geometry=geom)
 
-    busy_energy = busy_share(energy_iteration, "one energy iteration")
+    busy_energy = device_profile(energy_iteration, "one energy iteration")["busy"]
     result["score"].update(split_ms=split, busy_share=busy_score)
     result["energy"].update(busy_share=busy_energy)
     return result
@@ -984,17 +1006,52 @@ def present_class_map(table_dir: str, results_pkl: str, degree: int = 10, shift:
     return float(tables["pose_aps"][present, d, s].mean()), present
 
 
+def eval_stages_2_3(cfg, score, energy, seg, inf_dir, chunks, label):
+    """Stages 2 and 3 of ``evaluation_single`` into ``inf_dir``, with the FPS
+    and ball-query launches read around each stage and each chunk, and the
+    frozen dispatches around each stage.  Returns (seconds, launches,
+    dispatches) by stage."""
+    from genpose_tpu_torch.ops import ball_query_cuda, fps_cuda
+    from genpose_tpu_torch.runners import evaluation_single as ev
+    from genpose_tpu_torch.training import frozen
+
+    meters = {"stage 2": StepMeter(score, "sample"), "stage 3": StepMeter(energy, "get_energy")}
+    secs, launches, dispatches = {}, {}, {}
+    try:
+        for stage, run in (("stage 2", lambda: ev.inference_pose(cfg, score, seg, inf_dir)),
+                           ("stage 3", lambda: ev.inference_energy(cfg, energy, inf_dir))):
+            torch.cuda.synchronize()
+            fps_cuda.launches = ball_query_cuda.launches = frozen.dispatches = 0
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            secs[stage] = time.perf_counter() - t0
+            launches[stage] = {"fps": fps_cuda.launches, "ball_query": ball_query_cuda.launches}
+            dispatches[stage] = frozen.dispatches
+    finally:
+        for m in meters.values():
+            m.close()
+    for stage, m in meters.items():
+        per_chunk = [(c["fps"], c["ball_query"]) for c in m.calls]
+        want = {"fps": 3 * chunks, "ball_query": 3 * chunks}
+        if len(per_chunk) != chunks or set(per_chunk) != {(3, 3)} or launches[stage] != want:
+            raise AssertionError(f"evaluation {label} {stage}: per-chunk launches {per_chunk}, "
+                                 f"total {launches[stage]}, expected 3 + 3 in each of {chunks} "
+                                 f"chunks")
+    return secs, launches, dispatches
+
+
 def evaluation_path(dev, card):
     """Phase 9: ``evaluation_single``'s four stages at the released model's
     full width on a synthetic Real/test tree of EVAL_SCENES scenes at
     640x480, with the launch counts read around stages 2 and 3; then stage 4
-    on its own from near-GT hypotheses."""
+    on its own from near-GT hypotheses.  The agents are not frozen: this is
+    the eager arm of phase 12."""
     import pickle
     import shutil
 
     from genpose_tpu_torch.data.synthetic import (make_synthetic_mrcnn_results,
                                                   make_synthetic_nocs_dir)
-    from genpose_tpu_torch.ops import ball_query_cuda, fps_cuda
     from genpose_tpu_torch.runners import evaluation_single as ev
 
     root = OUT_DIR / "eval"
@@ -1016,34 +1073,22 @@ def evaluation_path(dev, card):
     _, categorized = ev.unpack_data(cfg, seg)
     largest = max(categorized.values(), key=lambda d: len(d["pts"]))
     instances = sum(len(d["pts"]) for d in categorized.values())
-    held = hold_path_geometry(ev.zero_center_batch(largest["pts"], dev)["zero_mean_pts"],
-                              "evaluation chunk")
+    chunks = sum(-(-len(d["pts"]) // cfg.batch_size) for d in categorized.values())
+    # a chunk as stages 2-3 see it: padded to the batch size
+    chunk = {k: ev.pad_rows(v, cfg.batch_size)
+             for k, v in ev.zero_center_batch(largest["pts"], dev).items()}
+    held = hold_path_geometry(chunk["zero_mean_pts"], "evaluation chunk")
 
-    meters = {"stage 2": StepMeter(score, "sample"), "stage 3": StepMeter(energy, "get_energy")}
-    launches = {}
-    for stage, run in (("stage 2", lambda: ev.inference_pose(cfg, score, seg, inf_dir)),
-                       ("stage 3", lambda: ev.inference_energy(cfg, energy, inf_dir))):
-        torch.cuda.synchronize()
-        fps_cuda.launches = ball_query_cuda.launches = 0
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        secs[stage] = time.perf_counter() - t0
-        launches[stage] = {"fps": fps_cuda.launches, "ball_query": ball_query_cuda.launches}
-    for m in meters.values():
-        m.close()
+    stage_secs, launches, dispatches = eval_stages_2_3(cfg, score, energy, seg, inf_dir, chunks,
+                                                       "eager")
+    if any(dispatches.values()):
+        raise AssertionError(f"evaluation eager: frozen dispatches {dispatches}")
+    secs.update(stage_secs)
     t0 = time.perf_counter()
     headline = ev.evaluate(cfg, inf_dir)
     ev.write_headline(inf_dir, headline)
     secs["stage 4"] = time.perf_counter() - t0
 
-    chunks = sum(-(-len(d["pts"]) // cfg.batch_size) for d in categorized.values())
-    for stage, m in meters.items():
-        per_chunk = [(c["fps"], c["ball_query"]) for c in m.calls]
-        want = {"fps": 3 * chunks, "ball_query": 3 * chunks}
-        if len(per_chunk) != chunks or set(per_chunk) != {(3, 3)} or launches[stage] != want:
-            raise AssertionError(f"evaluation {stage}: per-chunk launches {per_chunk}, total "
-                                 f"{launches[stage]}, expected 3 + 3 in each of {chunks} chunks")
     with open(Path(inf_dir) / "results_with_energy.pkl", "rb") as f:
         results = pickle.load(f)
     for key, entry in results.items():
@@ -1054,8 +1099,9 @@ def evaluation_path(dev, card):
             raise AssertionError(f"evaluation: {key} holds malformed hypotheses or energies")
     poses_s = instances / secs["stage 2"]
     print(f"evaluation (Real/test, {EVAL_SCENES} synthetic scenes at 640x480, {instances} "
-          f"instances in {chunks} chunks; N={N_POINTS}, K={K}, T0={EVAL_T0}, batch "
-          f"{cfg.batch_size}, {cfg.sampling_steps} Heun steps): tree {tree_s:.3f} s; "
+          f"instances in {chunks} chunks, each padded to {cfg.batch_size}: "
+          f"{chunks * cfg.batch_size / instances:.1f}x the rows of the instances; N={N_POINTS}, "
+          f"K={K}, T0={EVAL_T0}, {cfg.sampling_steps} Heun steps): tree {tree_s:.3f} s; "
           + ", ".join(f"{k} {v:.4f} s" for k, v in secs.items())
           + f"; stage 2 {poses_s:.2f} poses/s; launches per chunk FPS 3 + ball query 3 in "
           f"stage 2 ({launches['stage 2']}) and stage 3 ({launches['stage 3']}); kernels held "
@@ -1072,42 +1118,56 @@ def evaluation_path(dev, card):
                              f"over classes {present}")
     print(f"stage 4 on near-GT hypotheses (within 1 deg, 0.5 cm): mean 10deg5cm mAP "
           f"{100 * mean_map:.2f} over the classes present {present}", flush=True)
+    ctx = {"cfg": cfg, "seg": seg, "inf_dir": inf_dir, "chunk": chunk, "root": root}
     return {"instances": instances, "chunks": chunks, "seconds": secs, "tree_s": tree_s,
             "stage2_poses_per_s": poses_s, "launches": launches,
+            "padded_rows_per_instance": chunks * cfg.batch_size / instances,
             "headline": {k: float(v) for k, v in headline.items()},
-            "near_gt_10d5cm": mean_map}, nocs, (score, energy)
+            "near_gt_10d5cm": mean_map}, nocs, (score, energy), ctx
 
 
-def tracking_path(dev, card, nocs, agents):
+def tracking_path(dev, card, nocs, agents, frozen_arm=False):
     """Phase 10: ``evaluation_tracking.main_tracking`` (T0=0.15) at full width
-    on the phase-9 tree, the launch counts read around each frame; then one
-    frame profiled."""
+    on the phase-9 tree, the launch counts and the pooled poses read around
+    each frame; then one frame profiled.  ``main_tracking`` freezes its
+    agents: phase 10 is the eager arm, with ``freeze`` turned into a no-op on
+    the two agents for the run; phase 12 runs the frozen arm
+    (``frozen_arm``), as a user calls it.  Returns the summary, the pooled
+    poses of every frame and the metrics."""
     from genpose_tpu_torch.data.synthetic import make_synthetic_mrcnn_results
     from genpose_tpu_torch.ops import ball_query_cuda, fps_cuda
     from genpose_tpu_torch.runners import evaluation_single as ev
     from genpose_tpu_torch.runners import evaluation_tracking as et
+    from genpose_tpu_torch.training import frozen
     from genpose_tpu_torch.utils.tracking import add_noise_to_RT, srt_to_pose9d
 
-    result_dir = str(OUT_DIR / "eval" / "tracking")
+    arm = "frozen" if frozen_arm else "eager"
+    result_dir = str(OUT_DIR / "eval" / f"tracking_{arm}")
     make_synthetic_mrcnn_results(nocs, result_dir, "real_test", tracking=True)
     cfg = eval_config(nocs, result_dir, T0=TRACK_T0)
     score, energy = agents
-    frames, real = [], et.track_frame
+    frames, poses, real = [], [], et.track_frame
 
     def metered(*args, **kwargs):
         torch.cuda.synchronize()
-        f0, b0, t0 = fps_cuda.launches, ball_query_cuda.launches, time.perf_counter()
-        out = real(*args, **kwargs)
+        f0, b0, d0 = fps_cuda.launches, ball_query_cuda.launches, frozen.dispatches
+        t0 = time.perf_counter()
+        R, t = real(*args, **kwargs)
         torch.cuda.synchronize()
         frames.append({"s": time.perf_counter() - t0, "fps": fps_cuda.launches - f0,
                        "ball_query": ball_query_cuda.launches - b0,
+                       "dispatches": frozen.dispatches - d0,
                        "objects": int(args[3]["zero_mean_pts"].shape[0])})
-        return out
+        poses.append(torch.cat([R.flatten(1), t], 1).cpu().numpy())
+        return R, t
 
     et.track_frame = metered
+    if not frozen_arm:
+        for a in agents:
+            a.freeze = lambda a=a: a  # an instance attribute shadows the method
     try:
         torch.cuda.synchronize()
-        fps_cuda.launches = ball_query_cuda.launches = 0
+        fps_cuda.launches = ball_query_cuda.launches = frozen.dispatches = 0
         t0 = time.perf_counter()
         metrics = et.main_tracking(cfg, tracking=True, T0=TRACK_T0, device=dev,
                                    score_agent=score, energy_agent=energy)
@@ -1115,11 +1175,17 @@ def tracking_path(dev, card, nocs, agents):
         wall = time.perf_counter() - t0
     finally:
         et.track_frame = real
+        if not frozen_arm:
+            for a in agents:
+                del a.freeze
     launches = {"fps": fps_cuda.launches, "ball_query": ball_query_cuda.launches}
+    want_dispatches = 2 if frozen_arm else 0  # sample + get_energy per frame
     if (not frames or {(f["fps"], f["ball_query"]) for f in frames} != {(3, 3)}
-            or launches != {"fps": 3 * len(frames), "ball_query": 3 * len(frames)}):
-        raise AssertionError(f"tracking: frames {frames}, launches {launches}: expected FPS 3 "
-                             f"and ball query 3 per frame")
+            or launches != {"fps": 3 * len(frames), "ball_query": 3 * len(frames)}
+            or {f["dispatches"] for f in frames} != {want_dispatches}):
+        raise AssertionError(f"tracking {arm}: frames {frames}, launches {launches}: expected "
+                             f"FPS 3, ball query 3 and {want_dispatches} frozen dispatches a "
+                             f"frame")
     for name, m in metrics.items():
         if not np.isfinite(np.asarray(m["mean_error"], np.float64)).all():
             raise AssertionError(f"tracking: non-finite mean error for {name}")
@@ -1133,20 +1199,22 @@ def tracking_path(dev, card, nocs, agents):
     gt = torch.as_tensor(np.asarray(frame["gt_pose"], np.float32), device=dev)
     init = srt_to_pose9d(add_noise_to_RT(gt, generator=gen))
     init[:, -3:] -= batch["pts_center"]
-    busy = busy_share(lambda: et.track_frame(cfg, score, energy, batch, init, TRACK_T0, gen),
-                      "one tracking frame")
+    prof = device_profile(lambda: et.track_frame(cfg, score, energy, batch, init, TRACK_T0, gen),
+                          f"one tracking frame, {arm}")
     frame_s = [f["s"] for f in frames]
-    print(f"tracking (Real/test, {len(frames)} frames, {sum(f['objects'] for f in frames)} "
-          f"objects; N={N_POINTS}, K={K}, T0={TRACK_T0}, {cfg.sampling_steps} Heun steps): "
-          f"{len(frames) / wall:.3f} frames/s ({wall:.3f} s; a frame's device chain median "
-          f"{np.median(frame_s):.4f} s); launches per frame FPS 3 + ball query 3 ({launches}); "
-          f"kernels held against their plain versions at {held}; {card}", flush=True)
-    print("tracking metrics (random weights): " + "; ".join(
+    print(f"tracking {arm} (Real/test, {len(frames)} frames, "
+          f"{sum(f['objects'] for f in frames)} objects; N={N_POINTS}, K={K}, T0={TRACK_T0}, "
+          f"{cfg.sampling_steps} Heun steps): {len(frames) / wall:.3f} frames/s ({wall:.3f} s; "
+          f"a frame's device chain median {np.median(frame_s):.4f} s); launches per frame FPS 3 "
+          f"+ ball query 3 ({launches}), frozen dispatches {want_dispatches} a frame; kernels "
+          f"held against their plain versions at {held}; {card}", flush=True)
+    print(f"tracking {arm} metrics (random weights): " + "; ".join(
         f"{k}: mean error {np.round(np.asarray(m['mean_error'], np.float64), 3).tolist()}, "
         f"5d5cm {m['5d5cm_acc']:.4f}" for k, m in metrics.items()), flush=True)
     return {"frames": len(frames), "frames_per_s": len(frames) / wall, "wall_s": wall,
             "frame_s_median": float(np.median(frame_s)), "launches": launches,
-            "busy_share": busy}
+            "busy_share": prof["busy"], "frame_device_kernels": prof["kernels"],
+            "frame_device_ms": prof["device_ms"]}, poses, metrics
 
 
 def _scaled_diff(a, b) -> float:
@@ -1266,6 +1334,192 @@ def eval_cpu_gpu_agreement(dev):
     return worst
 
 
+FROZEN_TOL = 1e-6  # phase 12: frozen against eager, |a-b|/(1+|b|), where not bit for bit
+
+
+def _agreement(label: str, a: dict, b: dict) -> str:
+    """Hold two dicts of arrays (frozen, eager) to each other: bit for bit,
+    or else within FROZEN_TOL scaled.  Says which."""
+    if all(np.array_equal(a[k], b[k]) for k in b):
+        return "bit for bit"
+    worst = max(_scaled_diff(a[k], b[k]) for k in b)
+    if worst > FROZEN_TOL:
+        raise AssertionError(f"{label}: frozen vs eager max |a-b|/(1+|b|) {worst} > {FROZEN_TOL}")
+    return f"not bit for bit, max |a-b|/(1+|b|) {worst:.3e} <= {FROZEN_TOL}"
+
+
+def _graph_stats(*agents):
+    """Warm-up and capture (+ instantiate) seconds and graph count of each
+    frozen program of the agents."""
+    out = {}
+    for a in agents:
+        programs = a._frozen.programs if a._frozen is not None else {}
+        for key, prog in programs.items():
+            out[f"{a.mode} {key[0]} {key[1]}x{key[2]}"] = {
+                "warmup_s": prog.warmup_s, "capture_s": prog.capture_s,
+                "graphs": len(prog.segments)}
+    return out
+
+
+def frozen_serving(dev, card, pts: np.ndarray):
+    """Phase 12, serving: at full width under each sampler, a request eagerly
+    and then through ``freeze()`` from the same generator state; then, under
+    RK45, a weight change must end the frozen path and a new ``freeze()``
+    equal eager under the new weights."""
+    from genpose_tpu_torch.training import frozen
+    from genpose_tpu_torch.utils.weights import perturb_
+
+    result = {}
+    for sampler in ("ode", "ode_adaptive"):
+        pipe = make_pipeline(dev, sampler_mode=(sampler,)).warmup()
+        chunks = -(-pts.shape[0] // pipe.bs)
+
+        def request():
+            return pipe.predict(pts, generator=torch.Generator(device=dev).manual_seed(1))
+
+        eager, eager_s, _ = drive(pipe, pts, f"{sampler} eager")
+        eager_prof = device_profile(request, f"serving {sampler}, eager request")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        pipe.freeze().warmup()
+        freeze_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        held_mb = (torch.cuda.memory_reserved() - reserved0) / 2 ** 20
+        frozen.dispatches = 0
+        got, frozen_s, launches = drive(pipe, pts, f"{sampler} frozen")
+        dispatches = frozen.dispatches
+        if dispatches != 2 * chunks:
+            raise AssertionError(f"serving {sampler} frozen: {dispatches} frozen dispatches, "
+                                 f"expected {2 * chunks}")
+        how = _agreement(f"serving {sampler}", got, eager)
+        frozen_prof = device_profile(request, f"serving {sampler}, frozen request")
+        graphs = _graph_stats(pipe.score_agent, pipe.energy_agent)
+        result[sampler] = {"eager_s": eager_s, "frozen_s": frozen_s,
+                           "eager_poses_per_s": B / eager_s, "frozen_poses_per_s": B / frozen_s,
+                           "eager_profile": eager_prof, "frozen_profile": frozen_prof,
+                           "freeze_and_warmup_s": freeze_s, "graphs": graphs,
+                           "held_mb": held_mb, "launches": launches, "dispatches": dispatches,
+                           "agreement": how}
+        print(f"frozen serving {sampler} (bs={B}, K={K}, N={N_POINTS}): eager {eager_s:.4f} s "
+              f"= {B / eager_s:.2f} poses/s, frozen {frozen_s:.4f} s = {B / frozen_s:.2f} "
+              f"poses/s; busy {eager_prof['busy']} -> {frozen_prof['busy']}, device kernels "
+              f"{eager_prof['kernels']} -> {frozen_prof['kernels']} per request; freeze + "
+              f"warmup {freeze_s:.3f} s, programs {graphs}; device memory held by the frozen "
+              f"programs {held_mb:.1f} MiB (reserved); launches {launches}, frozen dispatches "
+              f"{dispatches}; frozen vs eager {how}; {card}", flush=True)
+
+        if sampler == "ode_adaptive":
+            perturb_(pipe.score_agent.model, seed=21)
+            if pipe.score_agent.frozen_programs() is not None:
+                raise AssertionError("perturb_ left the score agent's frozen programs in use")
+            frozen.dispatches = 0
+            new_eager, _, _ = drive(pipe, pts, "RK45 after perturb_")
+            eager_dispatches = frozen.dispatches  # the energy agent's, still frozen
+            pipe.freeze()
+            frozen.dispatches = 0
+            new_frozen, _, _ = drive(pipe, pts, "RK45 frozen again")
+            if (eager_dispatches, frozen.dispatches) != (chunks, 2 * chunks):
+                raise AssertionError(f"frozen dispatches after perturb_ {eager_dispatches}, "
+                                     f"after freeze() {frozen.dispatches}")
+            if np.array_equal(new_eager["sorted_hypotheses"], got["sorted_hypotheses"]):
+                raise AssertionError("perturb_ did not change the request's hypotheses")
+            how_new = _agreement("serving RK45 after perturb_", new_frozen, new_eager)
+            result[sampler]["after_weight_change"] = how_new
+            print(f"frozen serving: after perturb_ of the score weights the score agent ran "
+                  f"eagerly ({eager_dispatches} frozen dispatches, the energy agent's); a new "
+                  f"freeze() equals eager under the new weights, {how_new}", flush=True)
+        del pipe
+        torch.cuda.empty_cache()
+    return result
+
+
+def frozen_evaluation(dev, card, evaluation, ctx, agents):
+    """Phase 12, evaluation: stages 2-3 on phase 9's tree with both agents
+    frozen, as ``evaluation_single.main`` runs them, against phase 9's eager
+    results; stage 4 of both must give identical mAP tables.  One padded
+    stage-2 chunk is profiled in each arm."""
+    import pickle
+
+    from genpose_tpu_torch.runners import evaluation_single as ev
+
+    cfg, chunk, score, energy = ctx["cfg"], ctx["chunk"], *agents
+    chunks = evaluation["chunks"]
+    frozen_dir = str(ctx["root"] / "single" / "frozen")
+
+    def one_chunk():
+        score.sample(chunk, generator=torch.Generator(device=dev).manual_seed(cfg.seed),
+                     repeat_num=K, num_steps=cfg.sampling_steps, T0=cfg.T0)
+
+    eager_prof = device_profile(one_chunk, "one stage-2 chunk, eager")
+    score.freeze()
+    energy.freeze()
+    secs, launches, dispatches = eval_stages_2_3(cfg, score, energy, ctx["seg"], frozen_dir,
+                                                 chunks, "frozen")
+    if dispatches != {"stage 2": chunks, "stage 3": chunks}:
+        raise AssertionError(f"evaluation frozen: dispatches {dispatches}, expected {chunks} "
+                             f"in each stage")
+    frozen_prof = device_profile(one_chunk, "one stage-2 chunk, frozen")
+    ev.evaluate(cfg, frozen_dir)
+
+    def load(d, name):
+        with open(Path(d) / name, "rb") as f:
+            return pickle.load(f)
+
+    agreement = {}
+    for name, keys in (("results_wo_energy.pkl", ("multi_hypothesis_pred_RTs",)),
+                       ("results_with_energy.pkl", ("multi_hypothesis_pred_RTs", "energy"))):
+        a, b = load(frozen_dir, name), load(ctx["inf_dir"], name)
+        agreement[name] = _agreement(f"evaluation {name}", {
+            f"{p}:{k}": a[p]["result"][k] for p in a for k in keys},
+            {f"{p}:{k}": b[p]["result"][k] for p in b for k in keys})
+    tables = [load(Path(d) / "results" / cfg.pooling_mode / cfg.ranker, "mAP_Acc.pkl")
+              for d in (frozen_dir, ctx["inf_dir"])]
+    for k in ("iou_aps", "pose_aps", "iou_acc", "pose_acc"):
+        if not np.array_equal(tables[0][k], tables[1][k], equal_nan=True):
+            raise AssertionError(f"evaluation frozen vs eager: {k} tables differ")
+    eager_secs = evaluation["seconds"]
+    instances = evaluation["instances"]
+    graphs = _graph_stats(score, energy)
+    print(f"frozen evaluation ({instances} instances in {chunks} chunks padded to "
+          f"{cfg.batch_size}): stage 2 eager {eager_secs['stage 2']:.4f} s = "
+          f"{instances / eager_secs['stage 2']:.2f} poses/s, frozen {secs['stage 2']:.4f} s = "
+          f"{instances / secs['stage 2']:.2f} poses/s (capture included); stage 3 eager "
+          f"{eager_secs['stage 3']:.4f} s, frozen {secs['stage 3']:.4f} s; one chunk busy "
+          f"{eager_prof['busy']} -> {frozen_prof['busy']}, device kernels "
+          f"{eager_prof['kernels']} -> {frozen_prof['kernels']}; programs {graphs}; launches "
+          f"{launches}, frozen dispatches {dispatches}; frozen vs eager {agreement}; mAP tables "
+          f"identical; {card}", flush=True)
+    return {"seconds": secs, "stage2_poses_per_s": instances / secs["stage 2"],
+            "launches": launches, "dispatches": dispatches, "eager_chunk_profile": eager_prof,
+            "frozen_chunk_profile": frozen_prof, "graphs": graphs, "agreement": agreement}
+
+
+def frozen_tracking(dev, card, nocs, agents, eager, eager_poses, eager_metrics):
+    """Phase 12, tracking: ``main_tracking`` as a user calls it (both agents
+    frozen) on phase 10's frames, against phase 10's eager run."""
+    result, poses, metrics = tracking_path(dev, card, nocs, agents, frozen_arm=True)
+    if len(poses) != len(eager_poses):
+        raise AssertionError(f"tracking: {len(poses)} frozen frames, {len(eager_poses)} eager")
+    how = _agreement("tracking pooled poses", {n: p for n, p in enumerate(poses)},
+                     {n: p for n, p in enumerate(eager_poses)})
+    for name, m in eager_metrics.items():
+        got = metrics[name]
+        if got["5d5cm_acc"] != m["5d5cm_acc"] or _scaled_diff(got["mean_error"],
+                                                               m["mean_error"]) > FROZEN_TOL:
+            raise AssertionError(f"tracking metrics of {name}: frozen {got}, eager {m}")
+    graphs = _graph_stats(*agents)
+    print(f"frozen tracking: {result['frames_per_s']:.3f} frames/s against "
+          f"{eager['frames_per_s']:.3f} eager (capture included); a frame's chain median "
+          f"{result['frame_s_median']:.4f} s against {eager['frame_s_median']:.4f} s; one frame "
+          f"busy {eager['busy_share']} -> {result['busy_share']}, device kernels "
+          f"{eager['frame_device_kernels']} -> {result['frame_device_kernels']}; programs "
+          f"{graphs}; pooled poses {how}; metrics equal; {card}", flush=True)
+    result.update(graphs=graphs, agreement=how)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1314,11 +1568,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     training_cpu_gpu_agreement(dev)
     torch.cuda.empty_cache()
-    evaluation, nocs, agents = evaluation_path(dev, card)
-    tracking = tracking_path(dev, card, nocs, agents)
-    del agents
+    evaluation, nocs, agents, eval_ctx = evaluation_path(dev, card)
+    tracking, eager_poses, eager_metrics = tracking_path(dev, card, nocs, agents)
     torch.cuda.empty_cache()
     eval_cpu_gpu_agreement(dev)
+    frozen_arms = {"serving": frozen_serving(dev, card, pts),
+                   "evaluation": frozen_evaluation(dev, card, evaluation, eval_ctx, agents),
+                   "tracking": frozen_tracking(dev, card, nocs, agents, tracking, eager_poses,
+                                               eager_metrics)}
+    del agents, eval_ctx
+    torch.cuda.empty_cache()
 
     fps_launches = results["ode"][1]["fps"]
     bq_launches = results["ode"][1]["ball_query"]
@@ -1339,11 +1598,17 @@ def main() -> int:
     train_launches = {k: training["score"]["launches"][k] for k in ("fps", "ball_query")}
 
     def path_launches(k):
-        """A kernel's launches in each run of the evaluation and tracking paths."""
+        """A kernel's launches in each run of the evaluation and tracking
+        paths, and of the frozen arms of phase 12."""
+        fz = frozen_arms
         return {"evaluation_stage2_launches": evaluation["launches"]["stage 2"][k],
                 "evaluation_stage3_launches": evaluation["launches"]["stage 3"][k],
                 "evaluation_chunks": evaluation["chunks"],
-                "tracking_launches": tracking["launches"][k], "tracking_frames": tracking["frames"]}
+                "tracking_launches": tracking["launches"][k], "tracking_frames": tracking["frames"],
+                "frozen_serving_launches": fz["serving"]["ode"]["launches"][k],
+                "frozen_evaluation_stage2_launches": fz["evaluation"]["launches"]["stage 2"][k],
+                "frozen_evaluation_stage3_launches": fz["evaluation"]["launches"]["stage 3"][k],
+                "frozen_tracking_launches": fz["tracking"]["launches"][k]}
 
     kernels = [
         summary("fps", "genpose_tpu_torch/csrc/fps.cu", "genpose_tpu/ops/fps_pallas.py:75",
@@ -1363,6 +1628,7 @@ def main() -> int:
     ]
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"evaluation": evaluation, "tracking": tracking}), flush=True)
+    print(json.dumps({"frozen": frozen_arms}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

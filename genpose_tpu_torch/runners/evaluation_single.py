@@ -17,8 +17,12 @@ with the reference's ``segmentation_results_*.pkl``):
 
 Stages 2-3 run on the agents' device; each chunk's PointNet++ geometry
 (FPS + ball query: the CUDA kernels on a card) is computed once per stage.
-The JAX runner pads every chunk to ``batch_size`` so that its jitted
-sampler compiles once; nothing here compiles, so a short chunk stays short.
+As in the JAX runner, every chunk is padded to ``batch_size`` with copies
+of its last instance, and the padded rows are dropped from the results.
+The padded rows take part in the integration: the adaptive RK45 sampler
+picks one step size for all rows, so the real rows integrate as the JAX
+runner's do; and every chunk has one shape, so ``main``'s frozen agents
+capture one set of CUDA graphs per stage.
 
 Usage (weights: the port's checkpoints, ``training/checkpoints.py``, found
 under ``results/ckpts/<score_model_dir>`` and ``<energy_model_dir>`` as the
@@ -223,6 +227,12 @@ def _chunks(num: int, batch_size: int):
     return [(lo, min(lo + batch_size, num)) for lo in range(0, num, batch_size)]
 
 
+def pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x`` with copies of its last row appended up to ``rows`` rows."""
+    n = x.shape[0]
+    return x if n >= rows else torch.cat([x, x[-1:].expand(rows - n, *x.shape[1:])])
+
+
 def inference_pose(cfg: Config, score_agent: PoseAgent, data_path: str,
                    inference_res_dir: str, generator: Optional[torch.Generator] = None):
     """Stage 2: K-hypothesis score sampling per category chunk
@@ -240,12 +250,13 @@ def inference_pose(cfg: Config, score_agent: PoseAgent, data_path: str,
             continue
         print(f"Inferencing {cat}: {num} instances")
         for lo, hi in _chunks(num, cfg.batch_size):
-            batch = zero_center_batch(data["pts"][lo:hi], dev)
+            batch = {k: pad_rows(v, cfg.batch_size)
+                     for k, v in zero_center_batch(data["pts"][lo:hi], dev).items()}
             # sampler from cfg.sampler_mode: "ode" (Heun at cfg.sampling_steps)
             # or "ode_adaptive" (RK45 at atol/rtol 1e-5, the reference's solver)
             pred = score_agent.sample(batch, generator=generator,
                                       repeat_num=cfg.eval_repeat_num,
-                                      num_steps=cfg.sampling_steps, T0=cfg.T0)
+                                      num_steps=cfg.sampling_steps, T0=cfg.T0)[:hi - lo]
             rts = pose_to_rts(pred, cfg.pose_mode)
             data["pred_pose"] += list(pred.cpu().numpy())
             for bi, path in enumerate(data["img_path"][lo:hi]):
@@ -271,12 +282,14 @@ def inference_energy(cfg: Config, energy_agent: PoseAgent, inference_res_dir: st
     for data in categorized.values():
         num = len(data["img_path"])
         for lo, hi in _chunks(num, cfg.batch_size):
-            batch = zero_center_batch(data["pts"][lo:hi], dev)
-            pred_pose = torch.as_tensor(np.asarray(data["pred_pose"][lo:hi])).to(dev)
+            batch = {k: pad_rows(v, cfg.batch_size)
+                     for k, v in zero_center_batch(data["pts"][lo:hi], dev).items()}
+            pred_pose = pad_rows(torch.as_tensor(np.asarray(data["pred_pose"][lo:hi])).to(dev),
+                                 cfg.batch_size)
             energy = energy_agent.get_energy(batch, pred_pose, T=1e-5)
             sorted_pose, sorted_energy = sort_poses_by_energy(pred_pose, energy)
-            rts = pose_to_rts(sorted_pose, cfg.pose_mode)
-            sorted_energy = sorted_energy.cpu().numpy()
+            rts = pose_to_rts(sorted_pose[:hi - lo], cfg.pose_mode)
+            sorted_energy = sorted_energy[:hi - lo].cpu().numpy()
             for bi, path in enumerate(data["img_path"][lo:hi]):
                 inst = data["inst"][lo + bi]
                 res = detect_result[path]["result"]
@@ -412,12 +425,14 @@ def main(argv=None):
     print("Detecting ...")
     detect_mrcnn_results(cfg, seg_path)
 
+    # the weights are pinned for the whole evaluation: freeze each agent (on a
+    # card, CUDA graphs of its padded chunk), as the JAX runner's main does
     print("Predict pose ...")
-    score_agent = load_agent(cfg, "score", cfg.score_model_dir, device)
+    score_agent = load_agent(cfg, "score", cfg.score_model_dir, device).freeze()
     inference_pose(cfg, score_agent, seg_path, inference_res_dir)
 
     print("Predict energy ...")
-    energy_agent = load_agent(cfg, "energy", cfg.energy_model_dir, device)
+    energy_agent = load_agent(cfg, "energy", cfg.energy_model_dir, device).freeze()
     inference_energy(cfg, energy_agent, inference_res_dir)
 
     print("Evaluating ...")

@@ -9,11 +9,17 @@ mean (deg, cm) errors and 5deg5cm accuracy are reported (ref
 ``:221-245, 262-337``).
 
 Per frame, ``track_frame`` runs the JAX runner's ``frame_pipeline``
-(``:167-190``) eagerly on the agents' device: the geometry once (FPS + ball
-query: the CUDA kernels on a card), shared by the score and the energy
-encoder; K samples from the ``init_x`` + T0 prior; energies; the decoupled
-sort; the top-60% quaternion pool.  One worker thread decodes frame n+1
-while the device runs frame n.  Frames are not padded: nothing compiles.
+(``:167-190``) on the agents' device: the geometry once (FPS + ball query:
+the CUDA kernels on a card), shared by the score and the energy encoder; K
+samples from the ``init_x`` + T0 prior; energies; the decoupled sort; the
+top-60% quaternion pool.  As in the JAX runner, a frame's instances (and
+their ``init_x`` rows) are padded to the next power of two with copies of
+the last, and only the first rows are kept: the adaptive RK45 sampler picks
+one step size for all rows, so the real rows integrate as the JAX runner's
+do.  ``main_tracking`` freezes both agents before the frame loop (JAX
+closes ``frame_pipeline`` over the pinned states), so on a card each
+power-of-two bucket replays one set of CUDA graphs.  One worker thread
+decodes frame n+1 while the device runs frame n.
 
 Usage: ``python -m genpose_tpu_torch.runners.evaluation_tracking
 --data_path <nocs> --result_dir <results> --test_source real_test
@@ -44,6 +50,7 @@ from genpose_tpu_torch.runners.evaluation_single import (
     _instance_points,
     load_agent,
     mrcnn_path,
+    pad_rows,
     runner_device,
     zero_center_batch,
 )
@@ -136,9 +143,15 @@ def track_frame(cfg: Config, score_agent: PoseAgent, energy_agent: PoseAgent,
                 T0: float, generator: Optional[torch.Generator] = None):
     """One frame's device chain (JAX ``frame_pipeline``): shared geometry ->
     K samples from the ``init_x`` + T0 prior -> energies -> decoupled sort ->
-    top-60% quaternion pool.  Returns (R [n, 3, 3], t [n, 3])."""
+    top-60% quaternion pool, over the n instances padded to a power of two
+    (JAX ``evaluation_tracking.py:228-242``).  Returns (R [n, 3, 3], t [n, 3])."""
     K = cfg.eval_repeat_num
     keep = max(1, int(0.6 * K))
+    n = batch["zero_mean_pts"].shape[0]
+    rows = 1 << (n - 1).bit_length()
+    batch = {k: pad_rows(v, rows) for k, v in batch.items()}
+    if init_pose is not None:
+        init_pose = pad_rows(init_pose, rows)
     geom = score_agent.pts_geometry(batch["zero_mean_pts"])
     pred = score_agent.sample(batch, generator=generator, repeat_num=K,
                               num_steps=cfg.sampling_steps, T0=T0, init_x=init_pose,
@@ -146,7 +159,7 @@ def track_frame(cfg: Config, score_agent: PoseAgent, energy_agent: PoseAgent,
     energy = energy_agent.get_energy(batch, pred, T=1e-5, geometry=geom)
     sorted_pose, _ = sort_poses_by_energy(pred, energy)
     _, avg = score_agent.aggregate_hypotheses(sorted_pose[:, :keep])
-    return quat_wxyz_to_matrix(avg[:, :4]), avg[:, 4:]
+    return quat_wxyz_to_matrix(avg[:n, :4]), avg[:n, 4:]
 
 
 NoiseDraws = Callable[[int, int], tuple]
@@ -160,7 +173,8 @@ def main_tracking(cfg: Config, tracking: bool = True, T0: float = 0.15, device="
     """Sequential frame loop (ref ``evaluation_tracking.py:262-337``).
 
     Agents default to ``evaluation_single.load_agent`` on ``device`` (the
-    checkpoints under ``results/ckpts``).  The prior and the pose noise come
+    checkpoints under ``results/ckpts``); given or not, both are frozen
+    here (``PoseAgent.freeze``) for the run.  The prior and the pose noise come
     from ``generator`` (default: seeded ``cfg.seed`` on the agents' device);
     ``noise_draws(frame, n)``, if given, returns a frame's
     ``add_noise_to_RT`` draws instead (``frame`` counts the frames tracked).
@@ -171,6 +185,8 @@ def main_tracking(cfg: Config, tracking: bool = True, T0: float = 0.15, device="
         score_agent = load_agent(cfg, "score", cfg.score_model_dir, device)
     if energy_agent is None:
         energy_agent = load_agent(cfg, "energy", cfg.energy_model_dir, device)
+    score_agent.freeze()
+    energy_agent.freeze()
     dev = score_agent.device
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(cfg.seed)

@@ -12,14 +12,18 @@ Usage:
     pipe = InferencePipeline(cfg)                   # device="cuda" by default
     pipe.score_agent.load_jax(score_ema_shadow, score_batch_stats)
     pipe.energy_agent.load_jax(energy_params, energy_batch_stats)
+    pipe.freeze().warmup()       # optional: CUDA graphs of the request's shape
     out = pipe.predict(pts)      # pts: [n, num_points, 3] float32 (meters)
     out["pred_pose"]             # [n, 7]  wxyz quaternion + translation
     out["sorted_hypotheses"]     # [n, K, pose_dim], best-energy first
     out["energy"]                # [n, K, 2]
 
 The JAX pipeline samples with the score agent's EMA shadow and ranks with
-the energy agent's live params; load the same sets here.  ``freeze()`` (the
-JAX pipeline's weights-as-constants program) has no counterpart yet.
+the energy agent's live params; load the same sets here.  ``freeze()`` is
+the JAX pipeline's weights-as-constants program: both agents' sampling and
+energy passes then replay CUDA graphs of a private copy of their weights
+(``training/frozen.py``), with the geometry, the prior draw, the sort and
+the pooling outside the graphs.
 """
 
 from __future__ import annotations
@@ -75,9 +79,20 @@ class InferencePipeline:
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
 
+    def freeze(self) -> "InferencePipeline":
+        """Pin both agents' current weights (JAX ``serving.py:98-125``):
+        ``predict`` then runs each agent's frozen programs for as long as it
+        still holds the weights captured here (an agent whose weights change
+        runs eagerly, as JAX runs its argument-passing program).  Call again
+        after loading other weights."""
+        self.score_agent.freeze()
+        self.energy_agent.freeze()
+        return self
+
     def warmup(self) -> "InferencePipeline":
         """Run one batch of zeros, so that the first request finds the kernels
-        built and the libraries initialised."""
+        built, the libraries initialised and, after ``freeze()`` on a card,
+        the CUDA graphs of the request's shape captured."""
         pts = torch.zeros((self.bs, self.cfg.num_points, 3), device=self.device)
         self._run(pts, self._generator(0))
         if self.device.type == "cuda":

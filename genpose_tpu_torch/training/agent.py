@@ -18,7 +18,11 @@ optimizer state and the EMA shadow.  It exposes:
 - ``sample`` (the ``ode``/``ode_adaptive`` branches of ``_sample_impl``,
   ``:455-553``), which reads the EMA shadow, and ``get_energy``
   (``:581-593``), which reads the live parameters, as the JAX callers do;
-- ``aggregate_hypotheses`` (``:632-642``).
+- ``aggregate_hypotheses`` (``:632-642``);
+- ``freeze`` (``:141-164``): ``sample`` and ``get_energy`` then run a
+  private copy of the weights through static buffers (CUDA graphs on a
+  card; ``training/frozen.py``) while the agent still holds the weights it
+  captured.
 
 Until the first optimizer step, or until a shadow is loaded, the EMA shadow
 *is* the live parameters (``ema.shadow is None``), so weights loaded or
@@ -52,6 +56,7 @@ from genpose_tpu_torch.ops.pose import (
     get_rot_matrix,
     matrix_to_quat_wxyz,
 )
+from genpose_tpu_torch.training.frozen import FrozenPrograms
 from genpose_tpu_torch.training.ranking import ranking_loss, sort_results
 from genpose_tpu_torch.training.state import EMA, TrainState, create_train_state
 from genpose_tpu_torch.utils.weights import from_jax_variables, shadow_from_jax
@@ -74,6 +79,7 @@ class PoseAgent:
             base_lr=cfg.lr, warmup_steps=cfg.warmup, decay_per_epoch=cfg.lr_decay,
             steps_per_epoch=steps_per_epoch, floor_lr=cfg.lr_floor, grad_clip=cfg.grad_clip,
             ema_rate=cfg.ema_rate, optimizer=cfg.optimizer)
+        self._frozen: Optional[FrozenPrograms] = None
 
     def params(self) -> Dict[str, torch.nn.Parameter]:
         """The live parameters by name (the Fourier ``W`` is a buffer, not among them)."""
@@ -91,6 +97,21 @@ class PoseAgent:
             shadow = shadow_from_jax(ema_shadow, params, self.params(), self.device)
         self.state.ema = EMA(self.state.ema.decay, shadow)
         return self
+
+    def freeze(self) -> "PoseAgent":
+        """Pin the current weights for inference (JAX ``agent.py:141-164``):
+        ``sample`` and ``get_energy`` then run the frozen programs of
+        ``training/frozen.py`` (a private copy of the weights; one set of CUDA
+        graphs per shape on a card) for as long as the agent still holds the
+        weights captured here.  Call again after loading other weights."""
+        self._frozen = FrozenPrograms(self)
+        return self
+
+    def frozen_programs(self) -> Optional[FrozenPrograms]:
+        """The programs of the last ``freeze()``, or None once the agent no
+        longer holds the weights they captured (or was never frozen)."""
+        frozen = self._frozen
+        return frozen if frozen is not None and frozen.holds() else None
 
     # ------------------------------------------------------------------
     # internals
@@ -175,6 +196,23 @@ class PoseAgent:
             return self.model.energy_with(projs, pose, t, decoupled_rt=True)
 
         return energy_fn
+
+    def _score_fn_and_center(self, pts, pts_center, geometry, repeat: int):
+        """Encode the cloud (eval mode) and close score_fn over it for
+        ``repeat`` hypotheses a cloud; the centers repeated alike."""
+        feat = self._encode(pts, train=False, geometry=geometry)
+        return (self._head_score_fn(feat, repeat=repeat),
+                pts_center.repeat_interleave(repeat, dim=0))
+
+    def _energies(self, pts, pts_center, pose_samples, t_input, geometry):
+        """Energies [bs, K, 2] of camera-frame candidates [bs, K, pose_dim]
+        at times t_input [bs * K, 1] (eval mode)."""
+        bs, K, _ = pose_samples.shape
+        feat = self._encode(pts, train=False, geometry=geometry)
+        centered = torch.cat([pose_samples[..., :-3],
+                              pose_samples[..., -3:] - pts_center[:, None, :]], dim=-1)
+        energy_fn = self._head_energy_fn(feat, repeat=K)
+        return energy_fn(centered.reshape(bs * K, -1), t_input).reshape(bs, K, -1)
 
     def _gf_loss(self, feat, gt_pose, generator=None, noise: Optional[Noise] = None,
                  teacher_score_fn=None, create_graph: bool = True) -> torch.Tensor:
@@ -319,17 +357,23 @@ class PoseAgent:
         ``return_geometry`` the encoder geometry of the cloud too (computed
         here if not given), for an energy pass over the same cloud.
         ``init_x`` [bs, pose_dim] (zero-mean frame): each row's K samples
-        start from it plus the prior at ``T0`` (``agent.py:502-503``)."""
+        start from it plus the prior at ``T0`` (``agent.py:502-503``).
+        After ``freeze()`` the frozen programs run it (same result, same
+        draws from ``generator``)."""
         sampler = sampler or (self.cfg.sampler_mode[0] if self.cfg.sampler_mode else "ode")
         num_steps = num_steps or self.cfg.sampling_steps
         pts = batch["zero_mean_pts"]
         bs = pts.shape[0]
+        frozen = self.frozen_programs()
+        if frozen is not None:
+            res, geometry = frozen.sample(batch, generator, repeat_num, sampler, num_steps, T0,
+                                          init_x, geometry)
+            return (res, geometry) if return_geometry else res
         if return_geometry and geometry is None:
             geometry = self.pts_geometry(pts)
         with self.ema_weights():
-            feat = self._encode(pts, train=False, geometry=geometry)
-            center_rep = batch["pts_center"].repeat_interleave(repeat_num, dim=0)
-            score_fn = self._head_score_fn(feat, repeat=repeat_num)
+            score_fn, center_rep = self._score_fn_and_center(pts, batch["pts_center"], geometry,
+                                                             repeat_num)
             init_rep = None if init_x is None else init_x.repeat_interleave(repeat_num, dim=0)
             kw = dict(T0=T0, init_x=init_rep, pts_center=center_rep, generator=generator,
                       device=pts.device)
@@ -353,16 +397,15 @@ class PoseAgent:
                    geometry=None) -> torch.Tensor:
         """Energies [bs, K, 2] of candidates [bs, K, pose_dim] (camera frame)
         at time T under the live parameters, with the cloud center subtracted
-        from the translations."""
+        from the translations; through the frozen programs after ``freeze()``."""
         bs, K, _ = pose_samples.shape
-        feat = self._encode(batch["zero_mean_pts"], train=False, geometry=geometry)
-        centered = torch.cat([pose_samples[..., :-3],
-                              pose_samples[..., -3:] - batch["pts_center"][:, None, :]],
-                             dim=-1)
         t_input = torch.full((bs * K, 1), T, dtype=pose_samples.dtype,
                              device=pose_samples.device)
-        energy_fn = self._head_energy_fn(feat, repeat=K)
-        return energy_fn(centered.reshape(bs * K, -1), t_input).reshape(bs, K, -1)
+        frozen = self.frozen_programs()
+        if frozen is not None:
+            return frozen.get_energy(batch, pose_samples, t_input, geometry)
+        return self._energies(batch["zero_mean_pts"], batch["pts_center"], pose_samples,
+                              t_input, geometry)
 
     # ------------------------------------------------------------------
     # hypothesis aggregation (ref posenet_agent.py:450-463)

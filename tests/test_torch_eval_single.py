@@ -5,14 +5,16 @@ one writes the same tree, ``tests/test_torch_dataset_utils.py``) and its
 Mask R-CNN pkls.  Both runners get the same weights (a derandomised JAX
 agent pair, the port holding the score agent's EMA shadow and the energy
 agent's live params) and the same prior rows (each score agent's prior
-pinned to the first rows of ``NOISE``: the JAX runner pads a chunk to
-``batch_size``, the port does not, and the real instances' rows come first
-on both sides).
+pinned to the first rows of ``NOISE``: both runners pad a chunk to
+``batch_size`` with copies of its last instance, and each padded row takes
+its own prior row).
 
 - Stage 1: the segmentation cache is equal bit for bit.
 - Stages 2-3: RTs and energies within rtol = atol = 1e-4, the serving
   tolerance (``tests/test_torch_serving.py``): the same float32 chain on
-  the CPU, apart from GEMM summation order.
+  the CPU, apart from GEMM summation order.  Under the Heun sampler and
+  under the adaptive RK45 sampler, whose one step size for all rows makes
+  the padded rows part of the real rows' integration.
 - Stage 4: from the same results pkl, ``mAP_Acc.pkl``, the logs and
   ``mAP_headline.json`` are identical.
 """
@@ -85,6 +87,22 @@ def _cfgs(root, nocs, side, extra=()):
     return (jax_get_config if side == "jax" else get_config)(argv)
 
 
+def _stages_2_and_3(root, nocs, out, name, extra=()):
+    """Stages 2-3 of both runners from the stage-1 caches in ``out``, into
+    root/{jax,port}/``name``."""
+    jcfg, tcfg = _cfgs(root, nocs, "jax", extra), _cfgs(root, nocs, "port", extra)
+    js, je = jax_agent(jcfg, "score", seed=1), jax_agent(jcfg, "energy", seed=2)
+    ts, te = port_agent(tcfg, "score", js, use_ema=True), port_agent(tcfg, "energy", je, False)
+    pin_jax_prior(js, NOISE)
+    pin_port_prior(ts, NOISE)
+    dirs = {side: str(root / side / name) for side in ("jax", "port")}
+    jev.inference_pose(jcfg, js, out["jax"]["seg"], dirs["jax"], key=jax.random.PRNGKey(0))
+    tev.inference_pose(tcfg, ts, out["port"]["seg"], dirs["port"])
+    jev.inference_energy(jcfg, je, dirs["jax"])
+    tev.inference_energy(tcfg, te, dirs["port"])
+    return {side: {"seg": out[side]["seg"], "dir": dirs[side]} for side in dirs}
+
+
 @pytest.fixture(scope="module")
 def stages(tree):
     """Stages 1-3 of both runners on the tree, into root/{jax,port}."""
@@ -94,18 +112,16 @@ def stages(tree):
     for side, cfg, mod in (("jax", jcfg, jev), ("port", tcfg, tev)):
         seg = str(root / side / "seg" / "segmentation_results_real_test.pkl")
         mod.detect_mrcnn_results(cfg, seg)
-        out[side] = {"seg": seg, "dir": str(root / side / "inference")}
+        out[side] = {"seg": seg}
+    return _stages_2_and_3(root, nocs, out, "inference")
 
-    js, je = jax_agent(jcfg, "score", seed=1), jax_agent(jcfg, "energy", seed=2)
-    ts, te = port_agent(tcfg, "score", js, use_ema=True), port_agent(tcfg, "energy", je, False)
-    pin_jax_prior(js, NOISE)
-    pin_port_prior(ts, NOISE)
-    jev.inference_pose(jcfg, js, out["jax"]["seg"], out["jax"]["dir"],
-                       key=jax.random.PRNGKey(0))
-    tev.inference_pose(tcfg, ts, out["port"]["seg"], out["port"]["dir"])
-    jev.inference_energy(jcfg, je, out["jax"]["dir"])
-    tev.inference_energy(tcfg, te, out["port"]["dir"])
-    return out
+
+@pytest.fixture(scope="module")
+def stages_rk45(tree, stages):
+    """Stages 2-3 of both runners under ``--sampler_mode ode_adaptive``."""
+    root, nocs = tree
+    return _stages_2_and_3(root, nocs, stages, "inference_rk45",
+                           ["--sampler_mode", "ode_adaptive"])
 
 
 def test_stage1_segmentation_cache_is_bit_equal(stages):
@@ -124,9 +140,21 @@ def test_stage1_segmentation_cache_is_bit_equal(stages):
     assert logs[0] == logs[1]
 
 
-@pytest.mark.parametrize("name", ["results_wo_energy.pkl", "cls_data.pkl",
-                                  "results_with_energy.pkl"])
+STAGE_FILES = ["results_wo_energy.pkl", "cls_data.pkl", "results_with_energy.pkl"]
+
+
+@pytest.mark.parametrize("name", STAGE_FILES)
 def test_stages_2_and_3_match_jax(stages, name):
+    _check_stages_2_and_3(stages, name)
+
+
+@pytest.mark.parametrize("name", STAGE_FILES)
+def test_stages_2_and_3_match_jax_rk45(stages_rk45, name):
+    """Each category chunk (1-2 instances) padded to 4 on both sides."""
+    _check_stages_2_and_3(stages_rk45, name)
+
+
+def _check_stages_2_and_3(stages, name):
     want = _load(os.path.join(stages["jax"]["dir"], name))
     got = _load(os.path.join(stages["port"]["dir"], name))
     if name == "cls_data.pkl":

@@ -3,7 +3,9 @@
 Same weights on both sides (the score agent's EMA shadow for sampling, the
 energy agent's live params for ranking, as the JAX pipeline reads them) and
 the same prior rows (each score agent's SDE prior pinned to ``noise``).
-Sizes follow ``tests/test_serving.py``: 64 points, batch 2, K=3, 3 Heun steps.
+Sizes follow ``tests/test_serving.py``: 64 points, batch 2, K=3, 3 Heun
+steps; and the same under the adaptive RK45 sampler, where the padded rows
+share the step size of the real ones, as in the JAX pipeline.
 
 Tolerance: rtol = atol = 1e-4.  The two pipelines run the same float32
 chain on the CPU; per-op differences (GEMM summation order, ~1e-7) pass
@@ -24,20 +26,31 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 CFG = dict(num_points=64, batch_size=2, eval_repeat_num=3, sampling_steps=3, T0=0.55)
 
 
-@pytest.fixture(scope="module")
-def pipes():
-    jp = JaxPipeline(Config(**CFG))
+def make_pipes(sampler="ode"):
+    """A JAX pipeline and the port's on the CPU with the same weights and prior rows."""
+    cfg = dict(CFG, sampler_mode=(sampler,))
+    jp = JaxPipeline(Config(**cfg))
     derandomize_agent(jp.score_agent, 1)
     derandomize_agent(jp.energy_agent, 2)
     noise = np.random.default_rng(0).normal(size=(2 * 3, 9)).astype(np.float32)
     pin_jax_prior(jp.score_agent, noise)
 
-    tp = InferencePipeline(TorchConfig(**CFG), device="cpu")
+    tp = InferencePipeline(TorchConfig(**cfg), device="cpu")
     ss, es = jp.score_agent.state, jp.energy_agent.state
     tp.score_agent.load_jax(jax.device_get(ss.ema.shadow), jax.device_get(ss.batch_stats))
     tp.energy_agent.load_jax(jax.device_get(es.params), jax.device_get(es.batch_stats))
     pin_port_prior(tp.score_agent, noise)
     return jp, tp
+
+
+@pytest.fixture(scope="module")
+def pipes():
+    return make_pipes("ode")
+
+
+@pytest.fixture(scope="module")
+def rk45_pipes():
+    return make_pipes("ode_adaptive")
 
 
 def _cloud(n, seed):
@@ -61,9 +74,12 @@ def _assert_same(got, want):
                                err_msg="pred_pose t", **TOL)
 
 
-@pytest.mark.parametrize("n", [2, 1, 5], ids=["full_batch", "padded", "chunked"])
-def test_predict_matches_jax(pipes, n):
-    jp, tp = pipes
+@pytest.mark.parametrize("sampler,n", [
+    ("ode", 2), ("ode", 1), ("ode", 5), ("ode_adaptive", 2), ("ode_adaptive", 1),
+    ("ode_adaptive", 5)], ids=["full_batch", "padded", "chunked", "rk45_full_batch",
+                               "rk45_padded", "rk45_chunked"])
+def test_predict_matches_jax(request, sampler, n):
+    jp, tp = request.getfixturevalue("pipes" if sampler == "ode" else "rk45_pipes")
     pts = _cloud(n, seed=n)
     want = jp.predict(pts, key=jax.random.PRNGKey(0))
     got = tp.predict(pts)
@@ -93,10 +109,11 @@ def test_empty_request(pipes):
     assert out["energy"].shape == (0, 3, 2)
 
 
-def test_adaptive_sampler_pipeline_runs():
-    cfg = TorchConfig(**CFG, sampler_mode=("ode_adaptive",))
-    tp = InferencePipeline(cfg, device="cpu").warmup()
-    out = tp.predict(_cloud(3, seed=4))
-    assert out["pred_pose"].shape == (3, 7)
-    for v in out.values():
-        assert np.isfinite(v).all()
+def test_adaptive_sampler_pipeline_runs(rk45_pipes):
+    """After ``warmup``, a padded and chunked RK45 request equals the JAX pipeline's."""
+    jp, tp = rk45_pipes
+    pts = _cloud(3, seed=4)
+    want = jp.warmup().predict(pts, key=jax.random.PRNGKey(0))
+    got = tp.warmup().predict(pts)
+    assert got["pred_pose"].shape == (3, 7)
+    _assert_same(got, want)

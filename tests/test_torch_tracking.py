@@ -5,13 +5,18 @@ against the JAX package.
   equals the JAX function within 1e-6 (float32 quaternion arithmetic).
 - ``main_tracking`` over three frames: both runners get the same weights,
   the same prior rows (each score agent's prior pinned to the first rows of
-  ``NOISE``; the JAX runner pads a frame to a power of two, the port does
-  not) and the same pose noise (the port is handed the draws of the JAX
-  runner's keys).  The pooled pose of every instance of every frame agrees
-  within 1e-4, the serving tolerance, and so do the metrics.  Frames after
-  the first start from the previous frame's pooled pose, so a fault in the
-  ``init_x`` + T0 prior shows in frames 2 and 3.
+  ``NOISE``; both runners pad a frame to a power of two with copies of its
+  last instance, each padded row with its own prior rows) and the same pose
+  noise (the port is handed the draws of the JAX runner's keys).  The
+  pooled pose of every instance of every frame agrees within 1e-4, the
+  serving tolerance, and so do the metrics.  Frames after the first start
+  from the previous frame's pooled pose, so a fault in the ``init_x`` + T0
+  prior shows in frames 2 and 3.
+- The same under the adaptive RK45 sampler on a tree of three objects a
+  scene, whose frames of three instances are padded to four: RK45 takes one
+  step size for all rows, so the padding is part of the real rows' result.
 """
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +28,7 @@ from genpose_tpu.config import get_config as jax_get_config
 from genpose_tpu.runners import evaluation_tracking as jtr
 from genpose_tpu.utils import tracking as jtrk
 from genpose_tpu_torch.config import get_config
+from genpose_tpu_torch.data import synthetic
 from genpose_tpu_torch.data.synthetic import make_synthetic_mrcnn_results, make_synthetic_nocs_dir
 from genpose_tpu_torch.runners import evaluation_tracking as ttr
 from genpose_tpu_torch.utils import tracking as ttrk
@@ -93,22 +99,27 @@ def test_jitter_and_pose9d_match_jax():
                                   np.asarray(jtrk.srt_to_pose9d(jnp.asarray(rt))))
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    root = tmp_path_factory.mktemp("tracking")
-    nocs = make_synthetic_nocs_dir(str(root / "nocs"), n_camera_scenes=1, n_real_scenes=3,
-                                   seed=13)
+def _track_both(root, extra=()):
+    """``main_tracking`` of both runners on the tree under ``root``; returns
+    the pooled poses each handed ``compute_RT_errors``, both metrics and the
+    port's instance count of each frame."""
+    nocs = str(root / "nocs")
     for side in ("jax", "port"):
         make_synthetic_mrcnn_results(nocs, str(root / side), "real_test", tracking=True)
-    jcfg = jax_get_config(["--data_path", nocs, "--result_dir", str(root / "jax")] + FLAGS)
-    tcfg = get_config(["--data_path", nocs, "--result_dir", str(root / "port")] + FLAGS)
+    flags = FLAGS + list(extra)
+    jcfg = jax_get_config(["--data_path", nocs, "--result_dir", str(root / "jax")] + flags)
+    tcfg = get_config(["--data_path", nocs, "--result_dir", str(root / "port")] + flags)
 
     js, je = jax_agent(jcfg, "score", seed=3), jax_agent(jcfg, "energy", seed=4)
     ts, te = port_agent(tcfg, "score", js, use_ema=True), port_agent(tcfg, "energy", je, False)
     pin_jax_prior(js, NOISE)
     pin_port_prior(ts, NOISE)
 
-    out = {"jax": [], "port": []}
+    out, counts, track_frame = {"jax": [], "port": []}, [], ttr.track_frame
+
+    def counted(cfg, s, e, batch, *args):
+        counts.append(batch["zero_mean_pts"].shape[0])
+        return track_frame(cfg, s, e, batch, *args)
 
     def recorder(mod, side):
         real = mod.compute_RT_errors
@@ -130,24 +141,58 @@ def runs(tmp_path_factory):
         mp.setattr(jtr, "PoseAgent", lambda cfg, mode: js if mode == "score" else je)
         mp.setattr(jtr, "compute_RT_errors", recorder(jtr, "jax"))
         mp.setattr(ttr, "compute_RT_errors", recorder(ttr, "port"))
+        mp.setattr(ttr, "track_frame", counted)
         jm = jtr.main_tracking(jcfg, tracking=True, T0=T0)
         tm = ttr.main_tracking(tcfg, tracking=True, T0=T0, score_agent=ts, energy_agent=te,
                                noise_draws=lambda frame, n: _jax_draws(jax_noise[frame], n))
     finally:
         mp.undo()
-    return out, jm, tm
+    return out, jm, tm, counts
 
 
-def test_main_tracking_pooled_poses_match_jax(runs):
-    out, _, _ = runs
-    assert len(out["port"]) == len(out["jax"]) >= 4  # 3 frames of 1-2 instances
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("tracking")
+    make_synthetic_nocs_dir(str(root / "nocs"), n_camera_scenes=1, n_real_scenes=3, seed=13)
+    return _track_both(root)
+
+
+@pytest.fixture(scope="module")
+def runs_rk45(tmp_path_factory):
+    """Three objects a scene: ``render_scene`` draws two by default."""
+    root = tmp_path_factory.mktemp("tracking_rk45")
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(synthetic, "render_scene",
+                   functools.partial(synthetic.render_scene, n_instances=3))
+        make_synthetic_nocs_dir(str(root / "nocs"), n_camera_scenes=1, n_real_scenes=3,
+                                seed=13)
+    finally:
+        mp.undo()
+    return _track_both(root, ["--sampler_mode", "ode_adaptive"])
+
+
+def _check_pooled_poses(out):
     for n, (got, want) in enumerate(zip(out["port"], out["jax"])):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4, err_msg=f"instance {n}")
         np.testing.assert_allclose(got[:3, :3] @ got[:3, :3].T, np.eye(3), atol=1e-5)
 
 
+def test_main_tracking_pooled_poses_match_jax(runs):
+    out, _, _, _ = runs
+    assert len(out["port"]) == len(out["jax"]) >= 4  # 3 frames of 1-2 instances
+    _check_pooled_poses(out)
+
+
+def test_main_tracking_pooled_poses_match_jax_rk45(runs_rk45):
+    out, _, _, counts = runs_rk45
+    assert any(n & (n - 1) for n in counts), counts  # a frame is padded
+    assert len(out["port"]) == len(out["jax"]) == sum(counts)
+    _check_pooled_poses(out)
+
+
 def test_main_tracking_metrics_match_jax(runs):
-    _, jm, tm = runs
+    _, jm, tm, _ = runs
     assert list(tm) == list(jm) and "all" in tm
     for name in jm:
         np.testing.assert_allclose(tm[name]["mean_error"], jm[name]["mean_error"],
