@@ -83,12 +83,25 @@ non-zero and prints no result line):
    a new ``freeze()`` must equal eager under the new weights.  Prints each
    arm's seconds, poses/s or frames/s, busy share and device kernels, the
    warm-up and capture seconds of each program and the device memory the
-   frozen serving programs hold.
+   frozen serving programs hold;
+13. bfloat16 (``compute_dtype="bfloat16"``, the JAX package's serving
+   precision): stages 2-3 of phase 9's tree and ``main_tracking`` on phase
+   10's frames with bfloat16 agents frozen (seconds, poses/s, frames/s,
+   FPS 3 + ball query 3 per chunk and frame); then serving at full width
+   under each sampler, a bfloat16 pipeline eagerly and frozen (bit for bit)
+   beside the float32 one, bfloat16 against float32 per hypothesis on the
+   same prior rows within BF16_BUDGET (``tests/test_bf16.py``'s), each
+   arm's seconds, poses/s, busy share, device ms and kernels and the memory
+   the frozen bfloat16 programs hold; a small bfloat16 batch on the card
+   against the CPU within CPU_GPU_BF16_TOL; and ``train_score`` at the
+   released recipe under ``--compute_dtype bfloat16 --encoder_f32_stages
+   -2`` (seconds per step, samples/s, peak memory, finite losses, FPS 3 +
+   ball query 3 per step, float32 state).
 
 Checkpoints and metrics of phase 7 and the trees and results of phases
 9-12 go under ``build/chip_smoke/`` in the checkout.  The last lines are
 the training numbers, the evaluation and tracking numbers, the frozen arms,
-the card line, one JSON line describing each kernel, and
+the bfloat16 arms, the card line, one JSON line describing each kernel, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1126,13 +1139,14 @@ def evaluation_path(dev, card):
             "near_gt_10d5cm": mean_map}, nocs, (score, energy), ctx
 
 
-def tracking_path(dev, card, nocs, agents, frozen_arm=False):
+def tracking_path(dev, card, nocs, agents, frozen_arm=False, compute_dtype="float32"):
     """Phase 10: ``evaluation_tracking.main_tracking`` (T0=0.15) at full width
     on the phase-9 tree, the launch counts and the pooled poses read around
     each frame; then one frame profiled.  ``main_tracking`` freezes its
     agents: phase 10 is the eager arm, with ``freeze`` turned into a no-op on
     the two agents for the run; phase 12 runs the frozen arm
-    (``frozen_arm``), as a user calls it.  Returns the summary, the pooled
+    (``frozen_arm``), as a user calls it, and phase 13 the same with
+    ``--compute_dtype bfloat16`` agents.  Returns the summary, the pooled
     poses of every frame and the metrics."""
     from genpose_tpu_torch.data.synthetic import make_synthetic_mrcnn_results
     from genpose_tpu_torch.ops import ball_query_cuda, fps_cuda
@@ -1141,10 +1155,11 @@ def tracking_path(dev, card, nocs, agents, frozen_arm=False):
     from genpose_tpu_torch.training import frozen
     from genpose_tpu_torch.utils.tracking import add_noise_to_RT, srt_to_pose9d
 
-    arm = "frozen" if frozen_arm else "eager"
-    result_dir = str(OUT_DIR / "eval" / f"tracking_{arm}")
+    arm = ("frozen" if frozen_arm else "eager") + (
+        "" if compute_dtype == "float32" else f" {compute_dtype}")
+    result_dir = str(OUT_DIR / "eval" / f"tracking_{arm.replace(' ', '_')}")
     make_synthetic_mrcnn_results(nocs, result_dir, "real_test", tracking=True)
-    cfg = eval_config(nocs, result_dir, T0=TRACK_T0)
+    cfg = eval_config(nocs, result_dir, T0=TRACK_T0, compute_dtype=compute_dtype)
     score, energy = agents
     frames, poses, real = [], [], et.track_frame
 
@@ -1520,6 +1535,278 @@ def frozen_tracking(dev, card, nocs, agents, eager, eager_poses, eager_metrics):
     return result
 
 
+# phase 13: bfloat16 against float32 on the same prior rows, per hypothesis:
+# the budget of tests/test_bf16.py (rotation mean and max in degrees, the
+# largest translation difference over the mean translation, the largest
+# energy difference over the largest energy)
+BF16_BUDGET = {"mean_deg": 1.0, "max_deg": 3.0, "trans": 0.05, "energy": 0.05}
+CPU_GPU_BF16_TOL = 1e-2  # phase 13: bfloat16 on the card against the CPU, scaled
+
+
+def _rotation_deg(a: torch.Tensor, b: torch.Tensor) -> np.ndarray:
+    """Angles (degrees) between the rotations of two pose sets [..., 9]."""
+    from genpose_tpu_torch.ops.pose import get_rot_matrix
+
+    Ra = get_rot_matrix(a.reshape(-1, 9)[:, :6], "rot_matrix").double()
+    Rb = get_rot_matrix(b.reshape(-1, 9)[:, :6], "rot_matrix").double()
+    tr = torch.einsum("bij,bij->b", Ra, Rb)
+    return torch.rad2deg(torch.arccos(torch.clamp((tr - 1) / 2, -1, 1))).cpu().numpy()
+
+
+def _bf16_gaps(pipes, pts: np.ndarray, sampler: str):
+    """The two pipelines' score agents sample the same clouds from the same
+    generator state (the same prior rows), and both energy agents score the
+    float32 samples: per-hypothesis rotation angles, translation and energy
+    gaps, bfloat16 against float32."""
+    dev = pipes["float32"].device
+    x = torch.from_numpy(pts).to(dev)
+    center = x.mean(dim=1)
+    batch = {"zero_mean_pts": x - center[:, None], "pts_center": center}
+    cfg = pipes["float32"].cfg
+    samples = {dt: p.score_agent.sample(batch, torch.Generator(device=dev).manual_seed(1),
+                                        repeat_num=K, sampler=sampler,
+                                        num_steps=cfg.sampling_steps, T0=cfg.T0)
+               for dt, p in pipes.items()}
+    s32, s16 = samples["float32"], samples["bfloat16"]
+    e32, e16 = (pipes[dt].energy_agent.get_energy(batch, s32, T=1e-5)
+                for dt in ("float32", "bfloat16"))
+    if s16.dtype != torch.float32 or e16.dtype != torch.float32:
+        raise AssertionError(f"bf16 {sampler}: samples {s16.dtype}, energies {e16.dtype}")
+    ang = _rotation_deg(s32, s16)
+    return {"mean_deg": float(ang.mean()), "max_deg": float(ang.max()),
+            "trans": float((s32[..., -3:] - s16[..., -3:]).abs().max()
+                           / s32[..., -3:].abs().mean()),
+            "energy": float((e32 - e16).abs().max() / e32.abs().max())}
+
+
+def bf16_serving(dev, card, pts: np.ndarray, f32_arms: dict):
+    """Phase 13, serving: at full width under each sampler, a
+    ``compute_dtype="bfloat16"`` pipeline with the serving weights, eagerly
+    and then frozen (bit for bit); the float32 pipeline frozen beside it
+    (phase 12 timed its arms in this call); bfloat16 against float32 per
+    hypothesis within BF16_BUDGET; the pooled poses' gaps reported."""
+    from genpose_tpu_torch.training import frozen
+
+    result = {}
+    for sampler in ("ode", "ode_adaptive"):
+        pipes = {dt: make_pipeline(dev, sampler_mode=(sampler,), compute_dtype=dt)
+                 for dt in ("float32", "bfloat16")}
+        pipe = pipes["bfloat16"].warmup()
+        chunks = -(-pts.shape[0] // pipe.bs)
+
+        def request():
+            return pipe.predict(pts, generator=torch.Generator(device=dev).manual_seed(1))
+
+        eager, eager_s, _ = drive(pipe, pts, f"bf16 {sampler} eager")
+        eager_prof = device_profile(request, f"serving bf16 {sampler}, eager request")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        pipe.freeze().warmup()
+        freeze_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        held_mb = (torch.cuda.memory_reserved() - reserved0) / 2 ** 20
+        frozen.dispatches = 0
+        got, frozen_s, launches = drive(pipe, pts, f"bf16 {sampler} frozen")
+        if frozen.dispatches != 2 * chunks:
+            raise AssertionError(f"serving bf16 {sampler} frozen: {frozen.dispatches} frozen "
+                                 f"dispatches, expected {2 * chunks}")
+        if not all(np.array_equal(got[k], eager[k]) for k in eager):
+            raise AssertionError(f"serving bf16 {sampler}: frozen differs from eager")
+        frozen_prof = device_profile(request, f"serving bf16 {sampler}, frozen request")
+        graphs = _graph_stats(pipe.score_agent, pipe.energy_agent)
+
+        ref, _, _ = drive(pipes["float32"].freeze().warmup(), pts, f"f32 {sampler} frozen")
+        gaps = _bf16_gaps(pipes, pts, sampler)
+        over = {k: v for k, v in gaps.items() if v > BF16_BUDGET[k]}
+        if over:
+            raise AssertionError(f"serving bf16 {sampler} against f32: {gaps} over {BF16_BUDGET}")
+        pooled = {"max_deg": float(np.degrees(2 * np.arccos(np.clip(np.abs(np.sum(
+                      got["pred_pose"][:, :4] * ref["pred_pose"][:, :4], axis=1)), 0, 1))).max()),
+                  "trans": float(np.abs(got["pred_pose"][:, 4:] - ref["pred_pose"][:, 4:]).max()
+                                 / np.abs(ref["pred_pose"][:, 4:]).mean())}
+        f32 = f32_arms[sampler]
+        result[sampler] = {"eager_s": eager_s, "frozen_s": frozen_s,
+                           "eager_poses_per_s": B / eager_s, "frozen_poses_per_s": B / frozen_s,
+                           "eager_profile": eager_prof, "frozen_profile": frozen_prof,
+                           "freeze_and_warmup_s": freeze_s, "graphs": graphs, "held_mb": held_mb,
+                           "launches": launches, "against_f32": gaps, "pooled_against_f32": pooled,
+                           "f32_frozen_s": f32["frozen_s"], "f32_eager_s": f32["eager_s"]}
+        print(f"bf16 serving {sampler} (bs={B}, K={K}, N={N_POINTS}): eager {eager_s:.4f} s = "
+              f"{B / eager_s:.2f} poses/s, frozen {frozen_s:.4f} s = {B / frozen_s:.2f} poses/s "
+              f"(f32 in phase 12: eager {f32['eager_s']:.4f} s, frozen {f32['frozen_s']:.4f} s); "
+              f"busy {eager_prof['busy']} -> {frozen_prof['busy']}, device ms "
+              f"{eager_prof['device_ms']} -> {frozen_prof['device_ms']}, device kernels "
+              f"{eager_prof['kernels']} -> {frozen_prof['kernels']} per request; freeze + warmup "
+              f"{freeze_s:.3f} s, programs {graphs}; device memory held by the frozen programs "
+              f"{held_mb:.1f} MiB (reserved); launches {launches}; frozen vs eager bit for bit; "
+              f"against f32 per hypothesis {gaps} (budget {BF16_BUDGET}); pooled poses "
+              f"{pooled}; {card}", flush=True)
+        del pipe, pipes
+        torch.cuda.empty_cache()
+    return result
+
+
+def bf16_cpu_gpu_agreement(dev):
+    """Phase 13: bfloat16 on the card against the CPU (bs=2, K=4, 20 Heun
+    steps, the grid clouds and prior rows of phase 6): the samples, and the
+    energies of the CPU's samples, within CPU_GPU_BF16_TOL scaled.  cuBLAS
+    and the CPU GEMMs both accumulate in float32, in other orders, so a
+    bfloat16 rounding flips now and then."""
+    import dataclasses
+
+    from genpose_tpu_torch.runners.serving import InferencePipeline
+
+    gpu = make_pipeline(dev, batch_size=2, eval_repeat_num=4, sampling_steps=20,
+                        compute_dtype="bfloat16")
+    cpu = InferencePipeline(gpu.cfg, device="cpu")
+    cpu.score_agent.model.load_state_dict(gpu.score_agent.model.state_dict())
+    cpu.energy_agent.model.load_state_dict(gpu.energy_agent.model.state_dict())
+    noise = torch.from_numpy(np.random.default_rng(3).normal(size=(8, 9)).astype(np.float32))
+    sde = gpu.score_agent.sde
+
+    def prior(shape, T=None, generator=None, device=None):
+        return noise[:shape[0]].to(device) * sde.marginal_prob(None, T)[1]
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    pts = object_clouds(gen, 2, N_POINTS, dev, grid=2.0 ** -10) + torch.tensor(
+        [0.125, -0.0625, 0.75], device=dev)
+    out = {}
+    for name, pipe in (("cuda", gpu), ("cpu", cpu)):
+        pipe.score_agent.sde = dataclasses.replace(sde, prior=prior)
+        x = pts.to(pipe.device)
+        center = x.mean(dim=1)
+        batch = {"zero_mean_pts": x - center[:, None], "pts_center": center}
+        out[name] = (batch, pipe.score_agent.sample(batch, repeat_num=4, T0=gpu.cfg.T0))
+    cpu_samples = out["cpu"][1]
+    energies = {name: pipe.energy_agent.get_energy(out[name][0], cpu_samples.to(pipe.device),
+                                                   T=1e-5).cpu().numpy()
+                for name, pipe in (("cuda", gpu), ("cpu", cpu))}
+    diffs = {"samples": _scaled_diff(out["cuda"][1].cpu().numpy(), cpu_samples.numpy()),
+             "energies": _scaled_diff(energies["cuda"], energies["cpu"])}
+    if max(diffs.values()) > CPU_GPU_BF16_TOL:
+        raise AssertionError(f"bf16 CUDA vs CPU: {diffs} > {CPU_GPU_BF16_TOL}")
+    print(f"bf16 CUDA vs CPU (bs=2, K=4, 20 Heun steps): max |a-b|/(1+|b|) {diffs} <= "
+          f"{CPU_GPU_BF16_TOL}", flush=True)
+    return diffs
+
+
+def bf16_training(dev, card, f32_score):
+    """Phase 13, training: ``train_score`` at the released recipe (bs=192,
+    N=1024) under the supported mix, ``--compute_dtype bfloat16
+    --encoder_f32_stages -2``, for SCORE_STEPS steps and its eval epoch:
+    finite losses, FPS 3 + ball query 3 per step, every parameter, BatchNorm
+    statistic, moment and EMA shadow tensor float32 after it."""
+    from genpose_tpu_torch.config import Config
+    from genpose_tpu_torch.ops import ball_query_cuda, fps_cuda
+    from genpose_tpu_torch.runners import trainer
+    from genpose_tpu_torch.training.agent import PoseAgent
+    from genpose_tpu_torch.utils.weights import perturb_
+
+    cfg = Config(n_epochs=1, eval_freq=1, log_dir="score_bf16", seed=0,
+                 compute_dtype="bfloat16", encoder_f32_stages=-2)
+    loader = _raw_batches(np.random.default_rng(0), SCORE_STEPS, cfg.batch_size, cfg.num_points)
+    agent = PoseAgent(cfg, "score", device=dev, steps_per_epoch=len(loader))
+    perturb_(agent.model, seed=11)
+    meter = StepMeter(agent, "train_step")
+    orig = agent.train_step
+
+    def step(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        meter.calls[-1]["loss"] = float(out["gf"])
+        return out
+
+    agent.train_step = step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fps_cuda.launches = ball_query_cuda.launches = 0
+    t0 = time.perf_counter()
+    trainer.train_score(cfg, loader, loader[:1], agent, out_dir=str(OUT_DIR / "train"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fps": fps_cuda.launches, "ball_query": ball_query_cuda.launches}
+    peak = torch.cuda.max_memory_allocated()
+    del agent.train_step
+    steps = meter.calls
+    want = {"fps": 3 * (SCORE_STEPS + 2), "ball_query": 3 * (SCORE_STEPS + 2)}
+    if len(steps) != SCORE_STEPS or launches != want:
+        raise AssertionError(f"bf16 train_score: {len(steps)} steps, launches {launches}, "
+                             f"expected {SCORE_STEPS} steps and {want}")
+    for n, st in enumerate(steps):
+        if (st["fps"], st["ball_query"]) != (3, 3) or not np.isfinite(st["loss"]):
+            raise AssertionError(f"bf16 score step {n}: {st}")
+    state = [*agent.model.parameters(), *agent.model.buffers(),
+             *agent.state.ema.shadow.values(),
+             *(t for m in agent.state.opt_state.values() for t in m.values())]
+    if any(t.dtype != torch.float32 for t in state if t.is_floating_point()):
+        raise AssertionError("bf16 training left a parameter or statistic below float32")
+    s_step = float(np.median([st["s"] for st in steps[1:]]))
+    result = {"steps": SCORE_STEPS, "losses": [st["loss"] for st in steps], "s_per_step": s_step,
+              "samples_per_s": cfg.batch_size / s_step, "first_step_s": steps[0]["s"],
+              "loop_wall_s": wall, "peak_mem_gb": peak / 1e9, "launches": launches,
+              "f32_s_per_step": f32_score["s_per_step"],
+              "f32_peak_mem_gb": f32_score["peak_mem_gb"]}
+    print(f"bf16 train_score (bfloat16, encoder_f32_stages -2; bs={cfg.batch_size}, "
+          f"N={cfg.num_points}, repeat {cfg.repeat_num}, Adam, {SCORE_STEPS} steps + eval "
+          f"epoch): {s_step:.4f} s per step = {cfg.batch_size / s_step:.1f} samples/s (f32 "
+          f"in phase 7: {f32_score['s_per_step']:.4f} s); losses "
+          f"{[round(x, 4) for x in result['losses']]}; peak memory {peak / 1e9:.3f} GB (f32 "
+          f"{f32_score['peak_mem_gb']:.3f}); launches {launches}; {card}", flush=True)
+    return result
+
+
+def bf16_evaluation_tracking(dev, card, evaluation, frozen_eval, ctx, nocs):
+    """Phase 13, evaluation and tracking: stages 2-3 of phase 9's tree with
+    ``--compute_dtype bfloat16`` agents frozen (as ``evaluation_single.main``
+    runs them), then ``main_tracking`` on phase 10's frames with them."""
+    import pickle
+
+    from genpose_tpu_torch.runners import evaluation_single as ev
+
+    cfg = ctx["cfg"].replace(compute_dtype="bfloat16")
+    score, energy = eval_agents(cfg, dev)
+    chunks, instances = evaluation["chunks"], evaluation["instances"]
+    out_dir = str(ctx["root"] / "single" / "bf16_frozen")
+    score.freeze()
+    energy.freeze()
+    secs, launches, dispatches = eval_stages_2_3(cfg, score, energy, ctx["seg"], out_dir, chunks,
+                                                 "bf16 frozen")
+    if dispatches != {"stage 2": chunks, "stage 3": chunks}:
+        raise AssertionError(f"evaluation bf16: dispatches {dispatches}, expected {chunks} each")
+    chunk_prof = device_profile(
+        lambda: score.sample(ctx["chunk"], repeat_num=K, num_steps=cfg.sampling_steps, T0=cfg.T0,
+                             generator=torch.Generator(device=dev).manual_seed(cfg.seed)),
+        "one stage-2 chunk, frozen bfloat16")
+    with open(Path(out_dir) / "results_with_energy.pkl", "rb") as f:
+        results = pickle.load(f)
+    for key, entry in results.items():
+        res, valid = entry["result"], entry["valid_inst"]
+        rts, energy_k = res["multi_hypothesis_pred_RTs"][valid], res["energy"][valid]
+        if (rts.shape[1:] != (K, 4, 4) or not np.isfinite(rts).all()
+                or not np.isfinite(energy_k).all() or (np.diff(energy_k, axis=1) > 0).any()):
+            raise AssertionError(f"evaluation bf16: {key} holds malformed hypotheses or energies")
+    headline = ev.evaluate(cfg, out_dir)
+    f32 = frozen_eval["seconds"]
+    print(f"bf16 evaluation frozen ({instances} instances in {chunks} chunks padded to "
+          f"{cfg.batch_size}): stage 2 {secs['stage 2']:.4f} s = "
+          f"{instances / secs['stage 2']:.2f} poses/s (capture included; f32 frozen in phase 12 "
+          f"{f32['stage 2']:.4f} s), stage 3 {secs['stage 3']:.4f} s (f32 {f32['stage 3']:.4f} "
+          f"s); one chunk busy {chunk_prof['busy']}, device ms {chunk_prof['device_ms']} "
+          f"(f32 {frozen_eval['frozen_chunk_profile']['device_ms']}), device kernels "
+          f"{chunk_prof['kernels']}; launches {launches}, frozen dispatches {dispatches}; "
+          f"headline mAP (random "
+          f"weights) { {k: round(float(v), 4) for k, v in headline.items()} }; {card}",
+          flush=True)
+    tracking, _, _ = tracking_path(dev, card, nocs, (score, energy), frozen_arm=True,
+                                   compute_dtype="bfloat16")
+    return {"evaluation": {"seconds": secs, "stage2_poses_per_s": instances / secs["stage 2"],
+                           "launches": launches, "dispatches": dispatches,
+                           "frozen_chunk_profile": chunk_prof,
+                           "graphs": _graph_stats(score, energy)},
+            "tracking": tracking}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1576,7 +1863,16 @@ def main() -> int:
                    "evaluation": frozen_evaluation(dev, card, evaluation, eval_ctx, agents),
                    "tracking": frozen_tracking(dev, card, nocs, agents, tracking, eager_poses,
                                                eager_metrics)}
-    del agents, eval_ctx
+    del agents
+    torch.cuda.empty_cache()
+    bf16 = bf16_evaluation_tracking(dev, card, evaluation, frozen_arms["evaluation"], eval_ctx,
+                                    nocs)
+    del eval_ctx
+    torch.cuda.empty_cache()
+    bf16["serving"] = bf16_serving(dev, card, pts, frozen_arms["serving"])
+    bf16["cpu_gpu"] = bf16_cpu_gpu_agreement(dev)
+    torch.cuda.empty_cache()
+    bf16["training"] = bf16_training(dev, card, training["score"])
     torch.cuda.empty_cache()
 
     fps_launches = results["ode"][1]["fps"]
@@ -1599,7 +1895,8 @@ def main() -> int:
 
     def path_launches(k):
         """A kernel's launches in each run of the evaluation and tracking
-        paths, and of the frozen arms of phase 12."""
+        paths, of the frozen arms of phase 12 and of the bfloat16 arms of
+        phase 13."""
         fz = frozen_arms
         return {"evaluation_stage2_launches": evaluation["launches"]["stage 2"][k],
                 "evaluation_stage3_launches": evaluation["launches"]["stage 3"][k],
@@ -1608,7 +1905,12 @@ def main() -> int:
                 "frozen_serving_launches": fz["serving"]["ode"]["launches"][k],
                 "frozen_evaluation_stage2_launches": fz["evaluation"]["launches"]["stage 2"][k],
                 "frozen_evaluation_stage3_launches": fz["evaluation"]["launches"]["stage 3"][k],
-                "frozen_tracking_launches": fz["tracking"]["launches"][k]}
+                "frozen_tracking_launches": fz["tracking"]["launches"][k],
+                "bf16_serving_launches": bf16["serving"]["ode"]["launches"][k],
+                "bf16_training_score_run_launches": bf16["training"]["launches"][k],
+                "bf16_evaluation_stage2_launches": bf16["evaluation"]["launches"]["stage 2"][k],
+                "bf16_evaluation_stage3_launches": bf16["evaluation"]["launches"]["stage 3"][k],
+                "bf16_tracking_launches": bf16["tracking"]["launches"][k]}
 
     kernels = [
         summary("fps", "genpose_tpu_torch/csrc/fps.cu", "genpose_tpu/ops/fps_pallas.py:75",
@@ -1629,6 +1931,7 @@ def main() -> int:
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"evaluation": evaluation, "tracking": tracking}), flush=True)
     print(json.dumps({"frozen": frozen_arms}), flush=True)
+    print(json.dumps({"bf16": bf16}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

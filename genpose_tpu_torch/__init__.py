@@ -16,12 +16,16 @@ CUDA is asked for but absent.
 TF32 is switched off here, at import: the JAX package is the float32
 reference, and cuBLAS/cuDNN in TF32 keep only ~3 decimal digits.  The
 SharedMLPs are ``F.linear`` over channels-last tensors (no ``Conv2d``), so
-cuDNN is not on the path either way.
+cuDNN is not on the path either way.  bfloat16 GEMMs (``compute_dtype``)
+must accumulate in float32, as XLA's do: PyTorch lets cuBLAS reduce them in
+bfloat16 (split-K partial sums) unless
+``allow_bf16_reduced_precision_reduction`` is off, which it is from here on.
 """
 
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 __version__ = "0.1.0"

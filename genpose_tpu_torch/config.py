@@ -10,9 +10,12 @@ the released training scripts (``scripts/train_score.sh``,
 Fields that select JAX/TPU machinery are accepted for that parity and do
 nothing in the port: ``device`` (entry points take their own ``device``
 argument), ``num_devices``, ``gather_grad``, ``gather_fwd``,
-``compile_cache_dir``.  The port runs float32 only: ``compute_dtype``,
-``head_dtype``, ``bn_dtype``, ``geometry_dtype`` and ``encoder_f32_stages``
-must keep their float32 meaning (checked by the agent).
+``compile_cache_dir``.  The precision knobs ``compute_dtype`` (float32
+or bfloat16), ``head_dtype``, ``bn_dtype``, ``geometry_dtype`` and
+``encoder_f32_stages`` mean what they mean in the JAX package and are
+validated the same way (``models/posenet.py`` applies them; ``bn_dtype``
+changes nothing there, as in JAX).  The supported bfloat16 training mix is
+``--compute_dtype bfloat16 --encoder_f32_stages -2``.
 """
 
 from __future__ import annotations
@@ -114,7 +117,7 @@ class Config:
     is_train: bool = False
 
     # ---- precision / performance ----
-    compute_dtype: str = "float32"  # or "bfloat16" (not ported yet)
+    compute_dtype: str = "float32"  # or "bfloat16"; params stay float32
     head_dtype: str = "compute"
     gather_grad: str = "fast"
     gather_fwd: str = "fast"

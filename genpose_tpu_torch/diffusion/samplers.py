@@ -22,6 +22,11 @@ in tensors of its own that each attempt updates in place; its accept/reject
 control lives on the device, as in the JAX ``while_loop``, and the host
 reads one flag per attempt to decide whether to stop
 (``integrate_adaptive``).
+
+The state stays float32 under a bfloat16 compute dtype: the heads return
+float32 scores (JAX promotes the same way), and ``_score`` refuses any
+other, since a bfloat16 score times a 0-dim float32 coefficient would stay
+bfloat16 in PyTorch and round the step silently.
 """
 
 from __future__ import annotations
@@ -59,11 +64,19 @@ def _finish(x: torch.Tensor, pose_mode: str, pts_center: torch.Tensor) -> torch.
     return torch.cat([rot, x[:, -3:] + pts_center], dim=-1)
 
 
+def _score(score_fn: Callable, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """score_fn(x, t) at the batch-shared time t as a [1, 1] row, in x's dtype."""
+    s = score_fn(x, t.reshape(1, 1))
+    if s.dtype != x.dtype:
+        raise TypeError(f"the score is {s.dtype}, the integration state {x.dtype}")
+    return s
+
+
 def _ode_dx(score_fn: Callable, sde: SDE, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """PF-ODE right-hand side.  ``sde.sde`` returns the drift COEFFICIENT c(t)
     of f(x, t) = c(t) x; t is shared across the batch as a [1, 1] row."""
     drift, diffusion = sde.sde(t)
-    return drift * x - 0.5 * (diffusion ** 2) * score_fn(x, t.reshape(1, 1))
+    return drift * x - 0.5 * (diffusion ** 2) * _score(score_fn, x, t)
 
 
 def _denoise(score_fn, sde: SDE, x: torch.Tensor, step: float,
@@ -72,7 +85,7 @@ def _denoise(score_fn, sde: SDE, x: torch.Tensor, step: float,
     scalar; ref ``samplers.py:209-218``), with the correct sign (the
     reference's flip is ~1e-5 at sigma(eps)=0.01)."""
     drift, diffusion = sde.sde(eps)
-    grad = score_fn(x, eps.reshape(1, 1))
+    grad = _score(score_fn, x, eps)
     return x + (diffusion ** 2 * grad - drift * x) * step
 
 

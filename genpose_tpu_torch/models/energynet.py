@@ -8,6 +8,10 @@ by the agent (ref ``energynet.py:210-215``).
 Modes (defaults from ``configs/config.py:40-42``): energy_mode 'IP' (also
 'DAE', 'L2'); s_theta_mode 'score' (also 'decoder', 'identical');
 norm_energy 'identical' (also 'std', 'minus').
+
+``dtype`` is the trunk's compute dtype; ``std`` stays a 2-D float32
+column, so s_theta and the energies come out as JAX's do (float32 in the
+default modes).
 """
 
 from __future__ import annotations
@@ -23,12 +27,13 @@ from genpose_tpu_torch.models.scorenet import PoseTrunk
 class PoseEnergyNet(nn.Module):
     def __init__(self, marginal_prob_fn: Callable, pose_mode: str = "rot_matrix",
                  regression_head: str = "Rx_Ry_and_T", energy_mode: str = "IP",
-                 s_theta_mode: str = "score", norm_energy: str = "identical"):
+                 s_theta_mode: str = "score", norm_energy: str = "identical",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.marginal_prob_fn = marginal_prob_fn
         self.energy_mode, self.s_theta_mode, self.norm_energy = (
             energy_mode, s_theta_mode, norm_energy)
-        self.trunk = PoseTrunk(pose_mode=pose_mode, regression_head=regression_head)
+        self.trunk = PoseTrunk(pose_mode=pose_mode, regression_head=regression_head, dtype=dtype)
 
     def precompute(self, pts_feat):
         return self.trunk.precompute(pts_feat)

@@ -1,15 +1,28 @@
 """Shared layers (counterpart of ``genpose_tpu/models/layers.py``).
 
 - ``GaussianFourierProjection`` (ref ``scorenet.py:55-64``): fixed random
-  time features, stored as a buffer ``W``.
+  time features, stored as a buffer ``W``; always float32.
+- ``Dense``: flax ``nn.Dense`` at a compute dtype.  The input and the
+  float32 weight are cast to ``dtype`` at use; below float32 the bias is
+  added after the matmul, in ``dtype`` (two roundings, as flax), not fused
+  into the GEMM.
 - ``SharedMLP`` (ref ``pytorch_utils.py:5-33``): the reference's 1x1
-  Conv2d+BN+ReLU stack written as ``F.linear`` over channels-last
+  Conv2d+BN+ReLU stack written as ``Dense`` over channels-last
   ``[..., C]`` tensors.  A 1x1 convolution is a feature-dim matmul, and
-  ``F.linear`` keeps cuDNN (and its TF32 default) off the path.  In eval mode
-  BatchNorm uses its running statistics.
+  ``F.linear`` keeps cuDNN (and its TF32 default) off the path.  BatchNorm
+  normalises in float32 and casts back, as the JAX package's
+  ``TorchBatchNorm`` does; in eval mode it uses its running statistics.
 - ``SplitTail`` / ``FusedTails``: the fusion tails with the ``pts_feat``
   projection split off, so samplers compute it once per request
   (``precompute``) and reuse it at every step (``from_proj``).
+
+Parameters stay float32 whatever the compute dtype.  Where operands of two
+dtypes meet in a matmul (``FusedTails`` under ``encoder_f32_stages``: a
+float32 ``pts_feat`` and a bfloat16 kernel), ``matmul`` promotes both as
+``jnp.matmul`` does; ``torch.matmul`` of mixed dtypes would raise.  No
+autocast: each module computes in the dtype it is given, as the flax
+modules do.  ``cast_weights_`` gives a private copy of a model (the frozen
+programs') its matmul weights in their compute dtype once.
 
 Submodule and parameter names follow the flax tree (``dense_0``, ``bn_0``,
 ``feat_kernel``...), so ``utils/weights.py`` maps JAX parameters across by
@@ -39,15 +52,53 @@ class GaussianFourierProjection(nn.Module):
         return torch.cat([torch.sin(x_proj), torch.cos(x_proj)], dim=-1)
 
 
-class SharedMLP(nn.Module):
-    """Per-point MLP: Linear (no bias) + BatchNorm + ReLU, channels-last."""
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the promoted dtype of the two, as ``jnp.matmul``."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
 
-    def __init__(self, in_features: int, features: Sequence[int]):
+
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` in the promoted dtype of the two, as ``jnp.einsum``."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense(dtype=...)``: input and weight cast to ``dtype``.
+    In float32 one ``F.linear``; below it the matmul, then the bias added in
+    ``dtype``, as flax rounds them (``F.linear`` may fuse the bias into the
+    GEMM's epilogue and round once)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        x = x.to(dt)
+        if dt == torch.float32:
+            return F.linear(x, self.weight, self.bias)
+        y = x @ self.weight.to(dt).t()
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+class SharedMLP(nn.Module):
+    """Per-point MLP: Dense (no bias) + BatchNorm + ReLU, channels-last.
+
+    BatchNorm runs on the float32 view of its input and its output is cast
+    back to ``dtype`` (flax's ``force_float32_reductions`` and float32
+    normalisation; ``bn_dtype`` of the JAX package changes nothing here, as
+    it changes nothing there: ``tests/test_precision_knobs.py``)."""
+
+    def __init__(self, in_features: int, features: Sequence[int],
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.n_layers = len(features)
+        self.n_layers, self.dtype = len(features), dtype
         c = in_features
         for i, f in enumerate(features):
-            self.add_module(f"dense_{i}", nn.Linear(c, f, bias=False))
+            self.add_module(f"dense_{i}", Dense(c, f, bias=False, dtype=dtype))
             # torch BatchNorm2d defaults of the reference: momentum 0.1, eps 1e-5
             self.add_module(f"bn_{i}", nn.BatchNorm1d(f, eps=1e-5, momentum=0.1))
             c = f
@@ -56,20 +107,21 @@ class SharedMLP(nn.Module):
         for i in range(self.n_layers):
             x = getattr(self, f"dense_{i}")(x)
             shape = x.shape
-            x = getattr(self, f"bn_{i}")(x.reshape(-1, shape[-1])).reshape(shape)
-            x = F.relu(x)
+            x = getattr(self, f"bn_{i}")(x.float().reshape(-1, shape[-1]))
+            x = F.relu(x.reshape(shape).to(self.dtype))
         return x
 
 
 class SplitTail(nn.Module):
-    """``out(relu(Linear([pts_feat, dyn_feat])))`` with the first Linear split
+    """``out(relu(Dense([pts_feat, dyn_feat])))`` with the first Dense split
     into a static ``feat`` part (no bias) and a dynamic ``dyn`` part."""
 
-    def __init__(self, hidden: int, out_dim: int, feat_dim: int = 1024, dyn_dim: int = 384):
+    def __init__(self, hidden: int, out_dim: int, feat_dim: int = 1024, dyn_dim: int = 384,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.feat = nn.Linear(feat_dim, hidden, bias=False)
-        self.dyn = nn.Linear(dyn_dim, hidden)
-        self.out = nn.Linear(hidden, out_dim)
+        self.feat = Dense(feat_dim, hidden, bias=False, dtype=dtype)
+        self.dyn = Dense(dyn_dim, hidden, dtype=dtype)
+        self.out = Dense(hidden, out_dim, dtype=dtype)
 
     def precompute(self, pts_feat: torch.Tensor) -> torch.Tensor:
         return self.feat(pts_feat)
@@ -85,12 +137,15 @@ class FusedTails(nn.Module):
     block (pts_feat, t, pose) and the output heads a banked ``[K, H, O]``
     einsum.  The t block may be a step-shared ``[1, t_dim]`` row that
     broadcasts over the batch.  Parameters keep the flax layout ``[in, out]``.
-    """
+    The kernels are cast to ``dtype`` and meet their inputs as ``jnp``
+    operators do: a float32 ``pts_feat`` makes the projection, and
+    everything added to it, float32 (JAX ``layers.py:269-280``)."""
 
     def __init__(self, num_tails: int, hidden: int, out_dim: int, t_dim: int = 128,
-                 pose_feat_dim: int = 256, feat_dim: int = 1024):
+                 pose_feat_dim: int = 256, feat_dim: int = 1024,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.num_tails, self.hidden, self.out_dim = num_tails, hidden, out_dim
+        self.num_tails, self.hidden, self.out_dim, self.dtype = num_tails, hidden, out_dim, dtype
         kh = num_tails * hidden
         self.feat_kernel = nn.Parameter(torch.zeros(feat_dim, kh))
         self.t_kernel = nn.Parameter(torch.zeros(t_dim, kh))
@@ -100,12 +155,27 @@ class FusedTails(nn.Module):
         self.out_bias = nn.Parameter(torch.zeros(num_tails, out_dim))
 
     def precompute(self, pts_feat: torch.Tensor) -> torch.Tensor:
-        return pts_feat @ self.feat_kernel
+        return matmul(pts_feat, self.feat_kernel.to(self.dtype))
 
     def from_proj(self, fp: torch.Tensor, t_feat: torch.Tensor,
                   pose_feat: torch.Tensor) -> torch.Tensor:
         """fp [n, K*H]; t_feat [1 or n, t_dim]; pose_feat [n, pose_feat_dim]."""
-        h = fp + t_feat @ self.t_kernel + pose_feat @ self.pose_kernel + self.bias
+        dt = self.dtype
+        h = (fp + matmul(t_feat, self.t_kernel.to(dt)) + matmul(pose_feat, self.pose_kernel.to(dt))
+             + self.bias.to(dt))
         h = F.relu(h).reshape(h.shape[0], self.num_tails, self.hidden)
-        out = torch.einsum("nkh,kho->nko", h, self.out_kernel) + self.out_bias
+        out = einsum("nkh,kho->nko", h, self.out_kernel.to(dt)) + self.out_bias.to(dt)
         return out.reshape(out.shape[0], self.num_tails * self.out_dim)
+
+
+@torch.no_grad()
+def cast_weights_(model: nn.Module) -> nn.Module:
+    """Store every matmul weight of ``model`` in its module's compute dtype
+    (the casts the forward makes at use then do nothing).  For a private
+    copy that only runs inference: BatchNorm and the Fourier ``W`` stay
+    float32, and the values are what the casts at use would give."""
+    for m in model.modules():
+        if isinstance(m, (Dense, FusedTails)) and m.dtype != torch.float32:
+            for p in m.parameters(recurse=False):
+                p.data = p.data.to(m.dtype)
+    return model

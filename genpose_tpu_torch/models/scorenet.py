@@ -9,6 +9,12 @@ MLP conditioned on (pts_feat [1024], pose [pose_dim], t):
 
 Identical tail shapes fuse into one ``FusedTails`` bank (``Rx_Ry_and_T`` ->
 3 x 256); other heads are a list of ``SplitTail``s.
+
+``dtype`` is the head's compute dtype (``head_dtype``): ``t_dense``,
+``pose_dense_0/1`` and the tails compute in it; the Fourier features stay
+float32.  The score divides by a 2-D ``std`` column, so it is float32 under
+any head dtype, as in JAX (a 0-dim float32 divisor would leave a bfloat16
+quotient bfloat16 in PyTorch).
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from genpose_tpu_torch.models.layers import FusedTails, GaussianFourierProjection, SplitTail
+from genpose_tpu_torch.models.layers import Dense, FusedTails, GaussianFourierProjection, SplitTail
 from genpose_tpu_torch.ops.pose import get_pose_dim
 
 
@@ -39,24 +45,25 @@ class PoseTrunk(nn.Module):
     and energy heads.  ``precompute`` hoists the pts_feat projections out of
     the sampler's step loop."""
 
-    def __init__(self, pose_mode: str = "rot_matrix", regression_head: str = "Rx_Ry_and_T"):
+    def __init__(self, pose_mode: str = "rot_matrix", regression_head: str = "Rx_Ry_and_T",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         pose_dim = get_pose_dim(pose_mode)
         if regression_head == "Rx_Ry_and_T" and pose_mode != "rot_matrix":
             raise NotImplementedError("Rx_Ry_and_T requires rot_matrix pose mode")
         self.t_fourier = GaussianFourierProjection(embed_dim=128)
-        self.t_dense = nn.Linear(128, 128)
-        self.pose_dense_0 = nn.Linear(pose_dim, 256)
-        self.pose_dense_1 = nn.Linear(256, 256)
+        self.t_dense = Dense(128, 128, dtype=dtype)
+        self.pose_dense_0 = Dense(pose_dim, 256, dtype=dtype)
+        self.pose_dense_1 = Dense(256, 256, dtype=dtype)
         specs = _tail_specs(regression_head, pose_dim)
         if len({(h, o) for _, h, o in specs}) == 1:
             self.tails = FusedTails(num_tails=len(specs), hidden=specs[0][1],
-                                    out_dim=specs[0][2])
+                                    out_dim=specs[0][2], dtype=dtype)
             self.tail_names = None
         else:
             self.tail_names = tuple(name for name, _, _ in specs)
             for name, hidden, out_dim in specs:
-                self.add_module(name, SplitTail(hidden, out_dim))
+                self.add_module(name, SplitTail(hidden, out_dim, dtype=dtype))
 
     def precompute(self, pts_feat: torch.Tensor):
         """Loop-invariant tail projections of pts_feat (a tensor for the fused
@@ -82,10 +89,10 @@ class PoseTrunk(nn.Module):
 
 class PoseScoreNet(nn.Module):
     def __init__(self, marginal_prob_fn: Callable, pose_mode: str = "rot_matrix",
-                 regression_head: str = "Rx_Ry_and_T"):
+                 regression_head: str = "Rx_Ry_and_T", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.marginal_prob_fn = marginal_prob_fn
-        self.trunk = PoseTrunk(pose_mode=pose_mode, regression_head=regression_head)
+        self.trunk = PoseTrunk(pose_mode=pose_mode, regression_head=regression_head, dtype=dtype)
 
     def precompute(self, pts_feat):
         return self.trunk.precompute(pts_feat)

@@ -29,6 +29,12 @@ Until the first optimizer step, or until a shadow is loaded, the EMA shadow
 perturbed in ``model`` reach ``sample`` too.  A read of the shadow swaps it
 into the parameters' storage for the call and swaps back after.
 
+Precision follows ``cfg`` (``compute_dtype``, ``head_dtype``,
+``geometry_dtype``, ``encoder_f32_stages``; ``models/posenet.py``): only
+the matmuls and activations drop to bfloat16.  Parameters, BatchNorm
+statistics, the EMA shadow, the optimizer moments and the samplers' state
+stay float32, and so do the poses, energies and losses returned.
+
 Randomness comes from an explicit ``torch.Generator``; the training steps
 also take their draws as arguments (``noise``, ``t_int``), so that tests can
 give both packages the same numbers.  Likelihood, EDM and the PC sampler
@@ -137,8 +143,15 @@ class PoseAgent:
                 p.data = live[k]
 
     def pts_geometry(self, pts: torch.Tensor):
-        """FPS + ball query + grouped coordinates of a cloud, for every SA stage."""
-        return cls_msg_geometry(pts, self.cfg.pointnet2_params)
+        """FPS + ball query + grouped coordinates of a cloud, for every SA
+        stage, in the dtypes the encoder computes its inline geometry in
+        (``agent.py:191-203``): ``geometry_dtype`` float32 makes every stage
+        float32, else each stage takes its own dtype."""
+        m = self.model
+        if m.geometry_dtype is not None:
+            return cls_msg_geometry(pts, self.cfg.pointnet2_params, dtype=m.geometry_dtype)
+        return cls_msg_geometry(pts, self.cfg.pointnet2_params, dtype=m.dtype,
+                                f32_stages=m.f32_stages)
 
     def _encode(self, pts: torch.Tensor, train: bool, geometry=None) -> torch.Tensor:
         """The cloud feature; ``train`` runs BatchNorm on batch statistics and

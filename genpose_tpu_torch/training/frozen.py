@@ -7,7 +7,10 @@ programs as constants and runs each as one compiled XLA program.  Here
 EMA shadow, or the live parameters when there is none, for ``sample``; the
 live parameters for ``get_energy``; each with the BatchNorm statistics and
 the Fourier ``W``) and runs the encoder, the head and the sampler over
-static buffers.  On a card each shape key is captured once into CUDA graphs
+static buffers.  Under a bfloat16 compute dtype the copy holds its matmul
+weights in bfloat16, cast once here as JAX bakes them into its program, so
+no weight is cast inside the chain; the values are those the eager casts
+give, so frozen equals eager bit for bit in bfloat16 as in float32.  On a card each shape key is captured once into CUDA graphs
 (after a warm-up on the capture stream, all graphs of an agent in one
 memory pool) and replayed after:
 
@@ -46,6 +49,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from genpose_tpu_torch.diffusion.samplers import HeunChain, RK45, integrate_adaptive, prior_rows
+from genpose_tpu_torch.models.layers import cast_weights_
 
 # Calls served by frozen programs since import.  A run that resets it and
 # reads it afterwards shows whether a path went through them.
@@ -87,12 +91,14 @@ def _fingerprint(agent):
 
 def _twin(agent, shadow):
     """An agent that computes with a private copy of ``agent``'s model,
-    holding ``shadow`` as its parameters when given."""
+    holding ``shadow`` as its parameters when given, each matmul weight
+    stored in its module's compute dtype (``models/layers.py::cast_weights_``)."""
     model = copy.deepcopy(agent.model)
     if shadow is not None:
         with torch.no_grad():
             for k, p in model.named_parameters():
                 p.copy_(shadow[k])
+    cast_weights_(model)
     twin = copy.copy(agent)
     twin.model, twin._frozen = model, None
     return twin

@@ -98,6 +98,9 @@ def test_both_parsers_accept_the_same_flags_with_the_same_defaults():
     ["--sampler_mode", "ode_adaptive", "--is_train", "--o2c_pose", "false"],
     ["--selected_classes", "mug", "bowl", "--eval_ratios", "0.4", "0.6"],
     ["--parallel", "--num_gpu", "2", "--ratio", "0.5"],
+    ["--compute_dtype", "bfloat16", "--head_dtype", "float32", "--bn_dtype", "float32",
+     "--geometry_dtype", "float32", "--encoder_f32_stages", "-2"],
+    ["--compute_dtype", "bfloat16", "--encoder_f32_stages", "2"],
 ])
 def test_both_parsers_read_the_same_values(argv):
     assert dataclasses.asdict(torch_config.get_config(argv)) == dataclasses.asdict(
@@ -128,7 +131,17 @@ def test_unported_configurations_raise():
     from genpose_tpu_torch.models.posenet import build_model
 
     Config = torch_config.Config
-    for cfg in (Config(compute_dtype="bfloat16"), Config(pointnet2_params="full"),
-                Config(pts_encoder="pointnet"), Config(sde_mode="vp")):
+    for cfg in (Config(pointnet2_params="full"), Config(pts_encoder="pointnet"),
+                Config(sde_mode="vp")):
         with pytest.raises(NotImplementedError):
             build_model(cfg, "score", device="cpu")
+
+
+@pytest.mark.parametrize("bad", [{"compute_dtype": "float16"}, {"head_dtype": "fp32"},
+                                 {"bn_dtype": "bfloat16"}, {"geometry_dtype": "bf16"},
+                                 {"encoder_f32_stages": 6}, {"encoder_f32_stages": -6}],
+                         ids=lambda d: "-".join(f"{k}={v}" for k, v in d.items()))
+def test_both_configs_reject_the_same_precision_values(bad):
+    for module in (jax_config, torch_config):
+        with pytest.raises(ValueError):
+            module.Config(**bad)
