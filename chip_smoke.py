@@ -96,12 +96,25 @@ non-zero and prints no result line):
    against the CPU within CPU_GPU_BF16_TOL; and ``train_score`` at the
    released recipe under ``--compute_dtype bfloat16 --encoder_f32_stages
    -2`` (seconds per step, samples/s, peak memory, finite losses, FPS 3 +
-   ball query 3 per step, float32 state).
+   ball query 3 per step, float32 state);
+14. checkpoint interchange and the other SDEs and samplers: the serving
+   phase's seeded weights written as released GenPose ``.pth`` files in the
+   reference's torch layout (``upstream_state_dict``), converted by
+   ``genpose_tpu_torch/tools/port_torch_ckpt.py`` and loaded with
+   ``InferencePipeline(score_ckpt=, energy_ckpt=)``: its predictions must
+   equal the directly loaded pipeline's bit for bit; one full-width request
+   each under PC (VE, 500 steps), VP Heun-500 and EDM (18 steps): seconds,
+   poses/s, busy share, FPS 3 + ball query 3 launches; the card against the
+   CPU on a small batch with the same injected draws (PC, VP, EDM samples
+   and the energies of the CPU's samples within CPU_GPU_TOL scaled) and the
+   PF-ODE likelihood of two poses on both (FPS 3 + ball query 3 on the
+   card).
 
-Checkpoints and metrics of phase 7 and the trees and results of phases
-9-12 go under ``build/chip_smoke/`` in the checkout.  The last lines are
-the training numbers, the evaluation and tracking numbers, the frozen arms,
-the bfloat16 arms, the card line, one JSON line describing each kernel, and
+Checkpoints and metrics of phase 7, the trees and results of phases 9-12
+and the converted checkpoints of phase 14 go under ``build/chip_smoke/`` in
+the checkout.  The last lines are the training numbers, the evaluation and
+tracking numbers, the frozen arms, the bfloat16 arms, the checkpoint and
+sampler numbers, the card line, one JSON line describing each kernel, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -179,6 +192,73 @@ def row(shape: str, ms: float, plain_ms: float, n_bytes: float, n_ops: float, **
     bnd, by = bound_ms(n_bytes, n_ops)
     return dict(shape=shape, ms=ms, plain_ms=plain_ms, bytes=n_bytes, ops=n_ops,
                 bound_ms=bnd, bound_by=by, **extra)
+
+
+# the fusion tails of each regression head in the released (upstream) layout:
+# the flax tail name, the upstream module is "fusion_" + that name
+UPSTREAM_TAILS = {"RT": ("tail",), "R_and_T": ("tail_rot", "tail_trans"),
+                  "Rx_Ry_and_T": ("tail_rot_x", "tail_rot_y", "tail_trans")}
+
+
+def upstream_state_dict(params, batch_stats, regression_head: str = "Rx_Ry_and_T",
+                        decoder_head: bool = False):
+    """A released GenPose ``GFObjectPose`` state_dict (the reference's
+    torch layout, ``networks/posenet.py``) holding the given weights, which
+    come in the flax layout (nested dicts of arrays: the JAX package's
+    params and batch_stats, or ``utils/weights.py::to_jax_variables`` of a
+    port model).  The inverse of ``utils/torch_port.py::port_gf_state_dict``:
+    1x1-conv weights [out, in, 1, 1] and Linear weights [out, in], each tail
+    one Linear over [pts_feat, t-or-sigma feat, pose_feat], BatchNorm as
+    ``weight/bias/running_mean/running_var/num_batches_tracked``."""
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+    sd = {}
+
+    def linear(key, dense):
+        sd[f"{key}.weight"] = t(np.asarray(dense["kernel"]).T)
+        if "bias" in dense:
+            sd[f"{key}.bias"] = t(dense["bias"])
+
+    for sa, sa_p in params["encoder"].items():
+        for mlp, mlp_p in sa_p.items():
+            base = f"pts_encoder.SA_modules.{sa[3:]}.mlps.{mlp[4:]}"
+            for name, leaf in mlp_p.items():
+                j = name.split("_")[1]
+                if name.startswith("dense"):
+                    sd[f"{base}.layer{j}.conv.weight"] = t(np.asarray(leaf["kernel"]).T)[..., None, None]
+                else:
+                    bn, stats = f"{base}.layer{j}.bn.bn", batch_stats["encoder"][sa][mlp][name]
+                    sd[f"{bn}.weight"], sd[f"{bn}.bias"] = t(leaf["scale"]), t(leaf["bias"])
+                    sd[f"{bn}.running_mean"], sd[f"{bn}.running_var"] = (t(stats["mean"]),
+                                                                         t(stats["var"]))
+                    sd[f"{bn}.num_batches_tracked"] = torch.tensor(0)
+    head = params["head"] if decoder_head else params["head"]["trunk"]
+    pre = "pose_score_net."
+    if decoder_head:
+        linear(f"{pre}sigma_encoder.1", head["sigma_dense"])
+    else:
+        sd[f"{pre}t_encoder.0.W"] = t(head["t_fourier"]["W"])
+        linear(f"{pre}t_encoder.1", head["t_dense"])
+    linear(f"{pre}pose_encoder.0", head["pose_dense_0"])
+    linear(f"{pre}pose_encoder.2", head["pose_dense_1"])
+    for k, name in enumerate(UPSTREAM_TAILS[regression_head]):
+        tail = f"{pre}fusion_{name}"
+        if "tails" in head:  # the fused bank: tail k is the k-th block of columns
+            bank = {n: np.asarray(v) for n, v in head["tails"].items()}
+            h = bank["out_kernel"].shape[1]
+            cols = slice(k * h, (k + 1) * h)
+            w1 = np.concatenate([bank["feat_kernel"][:, cols], bank["t_kernel"][:, cols],
+                                 bank["pose_kernel"][:, cols]], axis=0)
+            linear(f"{tail}.0", {"kernel": w1, "bias": bank["bias"][cols]})
+            linear(f"{tail}.2", {"kernel": bank["out_kernel"][k], "bias": bank["out_bias"][k]})
+        else:
+            split = head[name]
+            w1 = np.concatenate([np.asarray(split["feat"]["kernel"]),
+                                 np.asarray(split["dyn"]["kernel"])], axis=0)
+            linear(f"{tail}.0", {"kernel": w1, "bias": split["dyn"]["bias"]})
+            linear(f"{tail}.2", split["out"])
+    return sd
 
 
 def object_clouds(gen: torch.Generator, n: int, n_points: int, device, grid: float = 0.0):
@@ -622,11 +702,15 @@ class StepMeter:
         delattr(self.obj, self.name)
 
 
-def device_profile(fn, label):
+def device_profile(fn, label, cpu: bool = True):
     """fn() once under torch.profiler: device busy share of the host wall
     time, device kernels and copies, device ms (None where no device time
-    was recorded, which is printed)."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    was recorded, which is printed).  ``cpu=False`` traces the device only:
+    the host's ops go unrecorded, so the wall time carries less tracing
+    overhead and a trace of ~50,000 kernels is read back in less time."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if cpu:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1807,6 +1891,182 @@ def bf16_evaluation_tracking(dev, card, evaluation, frozen_eval, ctx, nocs):
             "tracking": tracking}
 
 
+# phase 14: the samplers of the new paths, each at the released model's full
+# width; EDM at its reference step count (``cond_edm_sampler``)
+SAMPLER_ARMS = {"pc": dict(sampler_mode=("pc",)),
+                "vp_ode": dict(sde_mode="vp"),
+                "edm": dict(sde_mode="edm", sampler_mode=("edm",), sampling_steps=18)}
+LIKELIHOOD_STEPS = 50  # phase 14: a few poses' PF-ODE likelihood on the card and the CPU
+# phase 14: the times at which the energies of the CPU's samples are held,
+# card against CPU.  Serving ranks at t=1e-5; under VP the std there is
+# sqrt(1 - exp(-1e-6)), which float32 cancels to ~2 digits on any device
+# (a last-ulp difference of exp moves it by ~6 %), so VP is held at t=0.5
+# and its t=1e-5 difference is printed only.
+ENERGY_TS = {"pc": (1e-5,), "vp_ode": (0.5,), "edm": (1e-5,)}
+
+
+def _pinned_prior(sde, rows: torch.Tensor):
+    """``sde`` whose prior returns the first rows of ``rows`` as its standard
+    normal draw (scaled by the SDE's own prior), on the asked device."""
+    import dataclasses
+
+    def prior(shape, T=None, generator=None, device=None):
+        kw = {} if T is None else {"T": T}
+        return sde.prior(shape, noise=rows[:shape[0]].to(device), **kw)
+
+    return dataclasses.replace(sde, prior=prior)
+
+
+def released_checkpoint_route(dev, card, pts: np.ndarray):
+    """Phase 14 (1): the serving phase's seeded weights written as released
+    GenPose ``.pth`` files (``upstream_state_dict``), converted by
+    ``genpose_tpu_torch/tools/port_torch_ckpt.py`` and served by
+    ``InferencePipeline(score_ckpt=, energy_ckpt=)`` on the card: its
+    predictions must equal the directly loaded pipeline's bit for bit."""
+    from genpose_tpu_torch.runners.serving import InferencePipeline
+    from genpose_tpu_torch.tools import port_torch_ckpt
+    from genpose_tpu_torch.utils.weights import to_jax_variables
+
+    src = make_pipeline(dev).warmup()
+    out_dir = OUT_DIR / "released"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    t0 = time.perf_counter()
+    for mode, agent in (("score", src.score_agent), ("energy", src.energy_agent)):
+        pth = out_dir / f"{mode}.pth"
+        torch.save({"model_state_dict": upstream_state_dict(*to_jax_variables(agent.model)),
+                    "clock": {"epoch": 1, "minibatch": 0, "step": 0}}, pth)
+        paths[mode] = port_torch_ckpt.main(["--input", str(pth), "--output",
+                                            str(out_dir / f"{mode}_port"), "--posenet_mode", mode])
+    convert_s = time.perf_counter() - t0
+    pipe = InferencePipeline(src.cfg, device=dev, score_ckpt=paths["score"],
+                             energy_ckpt=paths["energy"]).warmup()
+    want, _, _ = drive(src, pts, "directly loaded")
+    got, seconds, launches = drive(pipe, pts, "from released .pth")
+    for k in want:
+        if not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"released .pth route: {k} differs from the directly loaded "
+                                 f"pipeline (max {_scaled_diff(got[k], want[k])})")
+    print(f"released .pth -> port (upstream layout, both models converted in "
+          f"{convert_s:.3f} s): the pipeline loaded from the converted checkpoints equals the "
+          f"directly loaded one bit for bit (bs={B}, K={K}, N={N_POINTS}, {HEUN_STEPS} Heun "
+          f"steps; {seconds:.4f} s, launches {launches}); {card}", flush=True)
+    return {"convert_s": convert_s, "seconds": seconds, "launches": launches,
+            "agreement": "bit for bit"}
+
+
+def new_sampler_paths(dev, card, pts: np.ndarray):
+    """Phase 14 (2): one request each under PC (VE, 500 steps), VP Heun-500
+    and EDM (18 steps) at full width: seconds, poses/s, busy share, device
+    kernels and the FPS / ball-query launches read around the request."""
+    result = {}
+    for name, overrides in SAMPLER_ARMS.items():
+        pipe = make_pipeline(dev, **overrides)
+        t0 = time.perf_counter()
+        pipe.warmup()
+        warm = time.perf_counter() - t0
+        _, seconds, launches = drive(pipe, pts, name)
+        prof = device_profile(
+            lambda: pipe.predict(pts, generator=torch.Generator(device=dev).manual_seed(1)),
+            f"serving {name}", cpu=False)
+        result[name] = {"seconds": seconds, "poses_per_s": B / seconds, "warmup_s": warm,
+                        "steps": pipe.cfg.sampling_steps, "launches": launches, "profile": prof}
+        print(f"new sampler path {name} (bs={B}, K={K}, N={N_POINTS}, sde {pipe.cfg.sde_mode}, "
+              f"sampler {pipe.sampler}, {pipe.cfg.sampling_steps} steps): {seconds:.4f} s per "
+              f"request = {B / seconds:.2f} poses/s (warmup {warm:.2f} s); busy "
+              f"{prof['busy']}, device ms {prof['device_ms']}, {prof['kernels']} device kernels; "
+              f"launches {launches}; {card}", flush=True)
+        del pipe
+        torch.cuda.empty_cache()
+    return result
+
+
+def new_sampler_cpu_gpu_agreement(dev, card):
+    """Phase 14 (3): the card against the CPU, same weights, grid clouds
+    (phase 6) and injected draws: PC (VE), VP Heun and EDM samples (bs=2,
+    K=4, 20 steps; EDM 18), the energies of the CPU's samples, and the
+    PF-ODE likelihood of 2 poses, a hypothesis of each cloud
+    (LIKELIHOOD_STEPS steps, exact divergence), with the FPS and ball-query
+    launches of the card's likelihood call."""
+    from genpose_tpu_torch.ops import ball_query_cuda, fps_cuda
+    from genpose_tpu_torch.runners.serving import InferencePipeline
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(4)
+    rows = torch.from_numpy(rng.normal(size=(8, 9)).astype(np.float32))
+    steps = 20
+    draws = {"pc": {"noise": tuple(torch.from_numpy(rng.normal(size=(steps, 8, 9)).astype(
+                 np.float32)) for _ in range(2))},
+             "edm": {"latents": rows}}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    pts = (object_clouds(gen, 2, N_POINTS, dev, grid=2.0 ** -10)
+           + torch.tensor([0.125, -0.0625, 0.75], device=dev)).cpu()
+    diffs = {}
+    for name, overrides in SAMPLER_ARMS.items():
+        small = dict(overrides, batch_size=2, eval_repeat_num=4,
+                     sampling_steps=18 if name == "edm" else steps)
+        gpu = make_pipeline(dev, **small)
+        cpu = InferencePipeline(gpu.cfg, device="cpu")
+        cpu.score_agent.model.load_state_dict(gpu.score_agent.model.state_dict())
+        cpu.energy_agent.model.load_state_dict(gpu.energy_agent.model.state_dict())
+        out = {}
+        for where, pipe in (("cuda", gpu), ("cpu", cpu)):
+            agent = pipe.score_agent
+            agent.sde = _pinned_prior(agent.sde, rows)
+            x = pts.to(pipe.device)
+            center = x.mean(dim=1)
+            batch = {"zero_mean_pts": x - center[:, None], "pts_center": center}
+            kw = {k: (tuple(t.to(pipe.device) for t in v) if isinstance(v, tuple)
+                      else v.to(pipe.device)) for k, v in draws.get(name, {}).items()}
+            out[where] = (batch, agent.sample(batch, repeat_num=4, T0=gpu.cfg.T0,
+                                              sampler=pipe.sampler,
+                                              num_steps=gpu.cfg.sampling_steps, **kw))
+        cpu_samples = out["cpu"][1]
+        diffs[name] = {"samples": _scaled_diff(out["cuda"][1].cpu().numpy(), cpu_samples.numpy())}
+        for T in ENERGY_TS[name]:
+            e = [p.energy_agent.get_energy(out[w][0], cpu_samples.to(p.device), T=T).cpu().numpy()
+                 for w, p in (("cuda", gpu), ("cpu", cpu))]
+            diffs[name][f"energies_t{T:g}"] = _scaled_diff(*e)
+        if name == "vp_ode":  # reported, not held: see ENERGY_TS
+            e = [p.energy_agent.get_energy(out[w][0], cpu_samples.to(p.device), T=1e-5)
+                 for w, p in (("cuda", gpu), ("cpu", cpu))]
+            vp_energy_t1e5 = _scaled_diff(e[0].cpu().numpy(), e[1].numpy())
+        if name == "pc":  # the likelihood under the VE score model of this arm
+            poses = cpu_samples[:, 0].clone()
+            poses[:, -3:] -= out["cpu"][0]["pts_center"]
+            fps_cuda.launches = ball_query_cuda.launches = 0
+            t0 = time.perf_counter()
+            z_gpu, bits_gpu = gpu.score_agent.likelihood(out["cuda"][0], poses.to(dev),
+                                                         num_steps=LIKELIHOOD_STEPS)
+            torch.cuda.synchronize()
+            lik_s = time.perf_counter() - t0
+            lik_launches = {"fps": fps_cuda.launches, "ball_query": ball_query_cuda.launches}
+            if lik_launches != {"fps": 3, "ball_query": 3}:
+                raise AssertionError(f"likelihood launches {lik_launches}, expected 3 + 3")
+            z_cpu, bits_cpu = cpu.score_agent.likelihood(out["cpu"][0], poses,
+                                                         num_steps=LIKELIHOOD_STEPS)
+            if not torch.isfinite(bits_gpu).all():
+                raise AssertionError(f"likelihood bits not finite: {bits_gpu}")
+            diffs["likelihood"] = {
+                "latent": _scaled_diff(z_gpu.cpu().numpy(), z_cpu.numpy()),
+                "bits": _scaled_diff(bits_gpu.cpu().numpy(), bits_cpu.numpy())}
+            likelihood = {"seconds": lik_s, "steps": LIKELIHOOD_STEPS, "poses": 2,
+                          "bits": bits_gpu.cpu().tolist(), "launches": lik_launches}
+        del gpu, cpu
+        torch.cuda.empty_cache()
+    worst = max(v for d in diffs.values() for v in d.values())
+    if worst > CPU_GPU_TOL:
+        raise AssertionError(f"new samplers CUDA vs CPU: {diffs} > {CPU_GPU_TOL}")
+    print(f"new samplers CUDA vs CPU ({time.perf_counter() - t_phase:.1f} s; bs=2, K=4; PC and "
+          f"VP Heun {steps} steps, EDM 18; VP energies at t=1e-5, not held: "
+          f"{vp_energy_t1e5:.3e}; "
+          f"likelihood of 2 poses, {LIKELIHOOD_STEPS} steps, exact divergence, "
+          f"{likelihood['seconds']:.3f} s on the card, bits {likelihood['bits']}, launches "
+          f"{likelihood['launches']}): max |a-b|/(1+|b|) {diffs} <= {CPU_GPU_TOL}; {card}",
+          flush=True)
+    return {"diffs": diffs, "likelihood": likelihood}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1874,6 +2134,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     bf16["training"] = bf16_training(dev, card, training["score"])
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase14 = {"released_ckpt": released_checkpoint_route(dev, card, pts)}
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    phase14["samplers"] = new_sampler_paths(dev, card, pts)
+    t2 = time.perf_counter()
+    phase14["cpu_gpu"] = new_sampler_cpu_gpu_agreement(dev, card)
+    t3 = time.perf_counter()
+    phase14["seconds"] = {"released_ckpt": t1 - t0, "samplers": t2 - t1, "cpu_gpu": t3 - t2,
+                          "total": t3 - t0}
+    print(f"phase 14 took {phase14['seconds']}", flush=True)
+    torch.cuda.empty_cache()
 
     fps_launches = results["ode"][1]["fps"]
     bq_launches = results["ode"][1]["ball_query"]
@@ -1895,8 +2167,8 @@ def main() -> int:
 
     def path_launches(k):
         """A kernel's launches in each run of the evaluation and tracking
-        paths, of the frozen arms of phase 12 and of the bfloat16 arms of
-        phase 13."""
+        paths, of the frozen arms of phase 12, of the bfloat16 arms of
+        phase 13 and of the checkpoint and sampler paths of phase 14."""
         fz = frozen_arms
         return {"evaluation_stage2_launches": evaluation["launches"]["stage 2"][k],
                 "evaluation_stage3_launches": evaluation["launches"]["stage 3"][k],
@@ -1910,7 +2182,11 @@ def main() -> int:
                 "bf16_training_score_run_launches": bf16["training"]["launches"][k],
                 "bf16_evaluation_stage2_launches": bf16["evaluation"]["launches"]["stage 2"][k],
                 "bf16_evaluation_stage3_launches": bf16["evaluation"]["launches"]["stage 3"][k],
-                "bf16_tracking_launches": bf16["tracking"]["launches"][k]}
+                "bf16_tracking_launches": bf16["tracking"]["launches"][k],
+                "released_ckpt_serving_launches": phase14["released_ckpt"]["launches"][k],
+                **{f"{name}_serving_launches": arm["launches"][k]
+                   for name, arm in phase14["samplers"].items()},
+                "likelihood_launches": phase14["cpu_gpu"]["likelihood"]["launches"][k]}
 
     kernels = [
         summary("fps", "genpose_tpu_torch/csrc/fps.cu", "genpose_tpu/ops/fps_pallas.py:75",
@@ -1932,6 +2208,7 @@ def main() -> int:
     print(json.dumps({"evaluation": evaluation, "tracking": tracking}), flush=True)
     print(json.dumps({"frozen": frozen_arms}), flush=True)
     print(json.dumps({"bf16": bf16}), flush=True)
+    print(json.dumps({"checkpoints_and_samplers": phase14}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -2,6 +2,8 @@
 
 - ``GaussianFourierProjection`` (ref ``scorenet.py:55-64``): fixed random
   time features, stored as a buffer ``W``; always float32.
+- ``PositionalEmbedding`` (ref ``scorenet.py:67-80``): the EDM decoder's
+  sinusoidal sigma embedding, without parameters; always float32.
 - ``Dense``: flax ``nn.Dense`` at a compute dtype.  The input and the
   float32 weight are cast to ``dtype`` at use; below float32 the bias is
   added after the matmul, in ``dtype`` (two roundings, as flax), not fused
@@ -50,6 +52,25 @@ class GaussianFourierProjection(nn.Module):
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         x_proj = t[:, None] * self.W[None, :] * 2 * math.pi
         return torch.cat([torch.sin(x_proj), torch.cos(x_proj)], dim=-1)
+
+
+class PositionalEmbedding(nn.Module):
+    """Sinusoidal embedding: x [n] -> [n, num_channels], cosines then sines
+    at frequencies (1 / max_positions) ** (i / (half - endpoint))."""
+
+    def __init__(self, num_channels: int = 128, max_positions: int = 10000,
+                 endpoint: bool = False):
+        super().__init__()
+        self.num_channels, self.max_positions, self.endpoint = (
+            num_channels, max_positions, endpoint)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        half = self.num_channels // 2
+        freqs = torch.arange(half, dtype=torch.float32, device=x.device)
+        freqs = freqs / (half - (1 if self.endpoint else 0))
+        base = torch.tensor(1.0 / self.max_positions, dtype=torch.float32, device=x.device)
+        x = x[:, None] * torch.pow(base, freqs)[None, :]
+        return torch.cat([torch.cos(x), torch.sin(x)], dim=-1)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -9,9 +9,10 @@ batch size are padded with copies of their last row, larger ones are
 chunked.
 
 Usage:
-    pipe = InferencePipeline(cfg)                   # device="cuda" by default
-    pipe.score_agent.load_jax(score_ema_shadow, score_batch_stats)
-    pipe.energy_agent.load_jax(energy_params, energy_batch_stats)
+    pipe = InferencePipeline(cfg, score_ckpt=..., energy_ckpt=...)  # device="cuda"
+    # or, with weights from the JAX package in memory:
+    #   pipe.score_agent.load_jax(score_ema_shadow, score_batch_stats)
+    #   pipe.energy_agent.load_jax(energy_params, energy_batch_stats)
     pipe.freeze().warmup()       # optional: CUDA graphs of the request's shape
     out = pipe.predict(pts)      # pts: [n, num_points, 3] float32 (meters)
     out["pred_pose"]             # [n, 7]  wxyz quaternion + translation
@@ -19,7 +20,15 @@ Usage:
     out["energy"]                # [n, K, 2]
 
 The JAX pipeline samples with the score agent's EMA shadow and ranks with
-the energy agent's live params; load the same sets here.  ``freeze()`` is
+the energy agent's live params; load the same sets here.  The checkpoints
+are the port's own (``training/checkpoints.py``), as
+``genpose_tpu_torch/tools/port_torch_ckpt.py`` writes them from a released
+``.pth`` and ``tools/orbax_to_port.py`` from a JAX checkpoint; they load
+model-only (weights, BatchNorm statistics, EMA shadow), as the JAX
+pipeline loads its own (``genpose_tpu/runners/serving.py:36-62``).  The
+sampler is ``cfg.sampler_mode[0]`` (``ode``, ``ode_adaptive``, ``pc``, or
+``edm`` under ``sde_mode="edm"``), run for ``cfg.sampling_steps`` steps
+from ``cfg.T0``.  ``freeze()`` is
 the JAX pipeline's weights-as-constants program: both agents' sampling and
 energy passes then replay CUDA graphs of a private copy of their weights
 (``training/frozen.py``), with the geometry, the prior draw, the sort and
@@ -35,6 +44,7 @@ import torch
 
 from genpose_tpu_torch.config import Config
 from genpose_tpu_torch.training.agent import PoseAgent
+from genpose_tpu_torch.training.checkpoints import load_checkpoint
 from genpose_tpu_torch.training.ranking import sort_poses_by_energy
 from genpose_tpu_torch.utils.device import resolve_device
 
@@ -42,7 +52,8 @@ from genpose_tpu_torch.utils.device import resolve_device
 class InferencePipeline:
     """Load-once pose estimation service on one device."""
 
-    def __init__(self, cfg: Config, batch_size: Optional[int] = None, device="cuda"):
+    def __init__(self, cfg: Config, batch_size: Optional[int] = None, device="cuda",
+                 score_ckpt: Optional[str] = None, energy_ckpt: Optional[str] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.bs = batch_size or cfg.batch_size
@@ -51,6 +62,10 @@ class InferencePipeline:
         self.sampler = cfg.sampler_mode[0] if cfg.sampler_mode else "ode"
         self.score_agent = PoseAgent(cfg, "score", device=self.device)
         self.energy_agent = PoseAgent(cfg, "energy", device=self.device)
+        if score_ckpt:
+            load_checkpoint(score_ckpt, self.score_agent, load_model_only=True)
+        if energy_ckpt:
+            load_checkpoint(energy_ckpt, self.energy_agent, load_model_only=True)
 
     @torch.no_grad()
     def _run(self, pts: torch.Tensor, generator: torch.Generator) -> Dict[str, torch.Tensor]:

@@ -15,9 +15,11 @@ optimizer state and the EMA shadow.  It exposes:
 - ``train_step_energy`` (``:394-449``): DSM through the energy's autograd
   score plus the ranking loss over candidates sorted by their ground-truth
   errors;
-- ``sample`` (the ``ode``/``ode_adaptive`` branches of ``_sample_impl``,
-  ``:455-553``), which reads the EMA shadow, and ``get_energy``
-  (``:581-593``), which reads the live parameters, as the JAX callers do;
+- ``sample`` (``_sample_impl``, ``:455-575``: the ``ode``, ``ode_adaptive``,
+  ``pc`` and ``edm`` samplers, with the trajectory on request), which reads
+  the EMA shadow, ``get_energy`` (``:581-608``), which reads the live
+  parameters, as the JAX callers do, and ``likelihood`` (``:614-626``),
+  which reads the shadow;
 - ``aggregate_hypotheses`` (``:632-642``);
 - ``freeze`` (``:141-164``): ``sample`` and ``get_energy`` then run a
   private copy of the weights through static buffers (CUDA graphs on a
@@ -35,10 +37,16 @@ the matmuls and activations drop to bfloat16.  Parameters, BatchNorm
 statistics, the EMA shadow, the optimizer moments and the samplers' state
 stay float32, and so do the poses, energies and losses returned.
 
-Randomness comes from an explicit ``torch.Generator``; the training steps
-also take their draws as arguments (``noise``, ``t_int``), so that tests can
-give both packages the same numbers.  Likelihood, EDM and the PC sampler
-are not ported yet.
+Under ``sde_mode="edm"`` (``is_edm``) a score agent has the EDM decoder
+head and trains with the EDM loss; the runners' T0, a time fraction, maps
+onto the sigma ladder (``diffusion/samplers.py::edm_sigma_start``).
+
+Randomness comes from an explicit ``torch.Generator``; every draw can also
+be passed in (``noise`` and ``t_int`` of the training steps, ``noise`` and
+``latents`` of the PC and EDM samplers, ``t_int`` of ``get_energy``), so
+that tests can give both packages the same numbers.  The frozen programs serve the ``ode`` and ``ode_adaptive``
+samplers; a frozen agent asked for another sampler, a trajectory or a
+likelihood raises rather than run eagerly.
 """
 
 from __future__ import annotations
@@ -49,8 +57,15 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 
 from genpose_tpu_torch.config import Config
-from genpose_tpu_torch.diffusion.losses import dsm_loss_repeated
-from genpose_tpu_torch.diffusion.samplers import ode_sampler, ode_sampler_adaptive
+from genpose_tpu_torch.diffusion.losses import dsm_loss_repeated, edm_dsm_loss_repeated
+from genpose_tpu_torch.diffusion.samplers import (
+    edm_sampler,
+    edm_sigma_start,
+    ode_likelihood,
+    ode_sampler,
+    ode_sampler_adaptive,
+    pc_sampler,
+)
 from genpose_tpu_torch.diffusion.sde import init_sde
 from genpose_tpu_torch.eval.metrics import pose_errors
 from genpose_tpu_torch.models.layers import FusedTails, SplitTail
@@ -78,6 +93,7 @@ class PoseAgent:
         self.cfg = cfg
         self.mode = posenet_mode or cfg.posenet_mode
         self.sde = init_sde(cfg.sde_mode)
+        self.is_edm = cfg.sde_mode == "edm"
         self.pose_dim = get_pose_dim(cfg.pose_mode)
         self.model = build_model(cfg, self.mode, device=device)
         self.device = next(self.model.parameters()).device
@@ -196,11 +212,33 @@ class PoseAgent:
         else:
             def score_fn(pose, t):
                 with torch.enable_grad():
-                    p = pose.detach().requires_grad_(True)
+                    # a pose already in a graph (the likelihood's divergence)
+                    # stays in it
+                    p = pose if pose.requires_grad else pose.detach().requires_grad_(True)
                     e = model.energy_with(projs, p, t, decoupled_rt=False)
                     (grad,) = torch.autograd.grad(e.sum(), p, create_graph=create_graph)
                 return grad
         return score_fn
+
+    def _head_denoise_fn(self, feat: torch.Tensor, repeat: int = 1, tile: int = 1,
+                         create_graph: bool = False):
+        """denoise_fn(pose, sigma) (``agent.py:253-274``): the decoder head's
+        own, else D = x + sigma^2 s(x, sigma) from the score."""
+        if self.model.decoder_head:
+            projs = self._head_projs(feat, repeat, tile)
+            model = self.model
+
+            def denoise_fn(pose, t):
+                return model.denoise_with(projs, pose, t)
+
+            return denoise_fn
+        score_fn = self._head_score_fn(feat, repeat, tile, create_graph)
+
+        def denoise_fn(pose, t):
+            _, sigma = self.sde.marginal_prob(None, t)
+            return pose + torch.reshape(sigma, (-1, 1)) ** 2 * score_fn(pose, t)
+
+        return denoise_fn
 
     def _head_energy_fn(self, feat: torch.Tensor, repeat: int = 1):
         projs = self._head_projs(feat, repeat)
@@ -229,7 +267,16 @@ class PoseAgent:
 
     def _gf_loss(self, feat, gt_pose, generator=None, noise: Optional[Noise] = None,
                  teacher_score_fn=None, create_graph: bool = True) -> torch.Tensor:
-        """The DSM term over ``cfg.repeat_num`` draws (the EDM loss is not ported)."""
+        """The DSM term over ``cfg.repeat_num`` draws, or under EDM the EDM
+        loss (``agent.py:276-286``); a teacher's distillation is DSM in
+        either case (``agent.py:346-348``).  ``noise`` is (t, z), under EDM
+        (sigma, z)."""
+        if self.is_edm and teacher_score_fn is None:
+            denoise_fn = self._head_denoise_fn(feat, tile=self.cfg.repeat_num,
+                                               create_graph=create_graph)
+            return edm_dsm_loss_repeated(denoise_fn, gt_pose, self.cfg.repeat_num,
+                                         sigma_min=self.sde.eps, sigma_max=self.sde.T,
+                                         generator=generator, noise=noise)
         score_fn = self._head_score_fn(feat, tile=self.cfg.repeat_num, create_graph=create_graph)
         return dsm_loss_repeated(score_fn, gt_pose, self.sde, self.cfg.repeat_num,
                                  teacher_score_fn=teacher_score_fn, generator=generator,
@@ -364,61 +411,122 @@ class PoseAgent:
     def sample(self, batch, generator: Optional[torch.Generator] = None, repeat_num: int = 1,
                sampler: Optional[str] = None, num_steps: Optional[int] = None,
                T0: Optional[float] = None, init_x: Optional[torch.Tensor] = None,
-               geometry=None, return_geometry: bool = False):
+               geometry=None, return_geometry: bool = False, return_process: bool = False,
+               noise=None, latents: Optional[torch.Tensor] = None):
         """batch {"zero_mean_pts" [bs, N, 3], "pts_center" [bs, 3]} ->
-        pred_pose [bs, repeat_num, pose_dim] in the camera frame, and with
-        ``return_geometry`` the encoder geometry of the cloud too (computed
-        here if not given), for an energy pass over the same cloud.
-        ``init_x`` [bs, pose_dim] (zero-mean frame): each row's K samples
-        start from it plus the prior at ``T0`` (``agent.py:502-503``).
-        After ``freeze()`` the frozen programs run it (same result, same
-        draws from ``generator``)."""
+        pred_pose [bs, repeat_num, pose_dim] in the camera frame; with
+        ``return_process`` first the trajectory [bs, repeat_num, steps,
+        pose_dim] (``ode``, ``pc``, ``edm``); with ``return_geometry`` last
+        the encoder geometry of the cloud (computed here if not given), for
+        an energy pass over the same cloud.  ``init_x`` [bs, pose_dim]
+        (zero-mean frame): each row's K samples start from it plus the prior
+        at ``T0`` (``agent.py:502-503``).  Under EDM, T0 is a time fraction
+        mapped onto the sigma ladder for every sampler (``agent.py:480-493``),
+        and ``edm`` defaults to 18 steps.  ``noise``: PC's per-step draws
+        (see ``pc_sampler``); ``latents``: EDM's unit prior [bs * repeat_num,
+        pose_dim].  After ``freeze()`` the frozen programs run ``ode`` and
+        ``ode_adaptive`` (same result, same draws from ``generator``); a
+        frozen agent raises for anything else."""
         sampler = sampler or (self.cfg.sampler_mode[0] if self.cfg.sampler_mode else "ode")
+        if sampler == "edm" and num_steps is None:
+            num_steps = 18  # ref cond_edm_sampler's default (samplers.py:232)
         num_steps = num_steps or self.cfg.sampling_steps
+        if sampler == "edm" and not self.is_edm:
+            raise ValueError("sampler 'edm' needs sde_mode='edm'")
+        if sampler == "ode_adaptive" and return_process:
+            raise ValueError("ode_adaptive has no fixed trajectory")
+        if self.is_edm and T0 is not None and sampler != "edm":
+            T0 = edm_sigma_start(T0, self.sde.eps, self.sde.T)
         pts = batch["zero_mean_pts"]
         bs = pts.shape[0]
         frozen = self.frozen_programs()
         if frozen is not None:
+            if return_process:
+                raise NotImplementedError("the frozen path has no trajectory (return_process)")
             res, geometry = frozen.sample(batch, generator, repeat_num, sampler, num_steps, T0,
                                           init_x, geometry)
             return (res, geometry) if return_geometry else res
         if return_geometry and geometry is None:
             geometry = self.pts_geometry(pts)
+        rows = bs * repeat_num
         with self.ema_weights():
-            score_fn, center_rep = self._score_fn_and_center(pts, batch["pts_center"], geometry,
-                                                             repeat_num)
+            feat = self._encode(pts, train=False, geometry=geometry)
+            center_rep = batch["pts_center"].repeat_interleave(repeat_num, dim=0)
             init_rep = None if init_x is None else init_x.repeat_interleave(repeat_num, dim=0)
-            kw = dict(T0=T0, init_x=init_rep, pts_center=center_rep, generator=generator,
+            kw = dict(init_x=init_rep, pts_center=center_rep, generator=generator,
                       device=pts.device)
-            if sampler == "ode":
-                res = ode_sampler(score_fn, bs * repeat_num, self.sde, self.cfg.pose_mode,
-                                  num_steps=num_steps, **kw)
-            elif sampler == "ode_adaptive":
-                res = ode_sampler_adaptive(score_fn, bs * repeat_num, self.sde,
-                                           self.cfg.pose_mode, **kw)
+            if sampler == "edm":
+                res = edm_sampler(self._head_denoise_fn(feat, repeat=repeat_num), rows,
+                                  self.cfg.pose_mode, num_steps=num_steps,
+                                  sigma_min=self.sde.eps, sigma_max=self.sde.T,
+                                  return_process=return_process, T0=T0, latents=latents, **kw)
             else:
-                raise NotImplementedError(f"sampler {sampler!r} is not ported")
+                score_fn = self._head_score_fn(feat, repeat=repeat_num)
+                args = (score_fn, rows, self.sde, self.cfg.pose_mode)
+                if sampler == "ode":
+                    res = ode_sampler(*args, num_steps=num_steps, T0=T0,
+                                      return_process=return_process, **kw)
+                elif sampler == "ode_adaptive":
+                    res = ode_sampler_adaptive(*args, T0=T0, **kw)
+                elif sampler == "pc":
+                    res = pc_sampler(*args, num_steps=num_steps, T0=T0,
+                                     return_process=return_process, noise=noise, **kw)
+                else:
+                    raise NotImplementedError(f"sampler {sampler!r}")
+        if return_process:
+            process, res = res
+            process = process.reshape(bs, repeat_num, process.shape[1], -1)
         res = res.reshape(bs, repeat_num, -1)
-        return (res, geometry) if return_geometry else res
+        out = (process, res) if return_process else (res,)
+        if return_geometry:
+            out = out + (geometry,)
+        return out if len(out) > 1 else res
 
     # ------------------------------------------------------------------
     # energies of candidate poses (ref posenet_agent.py:471-527)
     # ------------------------------------------------------------------
 
     @torch.no_grad()
-    def get_energy(self, batch, pose_samples: torch.Tensor, T: float,
-                   geometry=None) -> torch.Tensor:
+    def get_energy(self, batch, pose_samples: torch.Tensor, T: Optional[float] = None,
+                   geometry=None, generator: Optional[torch.Generator] = None,
+                   t_int: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Energies [bs, K, 2] of candidates [bs, K, pose_dim] (camera frame)
-        at time T under the live parameters, with the cloud center subtracted
-        from the translations; through the frozen programs after ``freeze()``."""
+        under the live parameters, with the cloud center subtracted from the
+        translations, at time T, or without T at t = t_int / 1e5 per cloud
+        (``agent.py:595-603``) with ``t_int`` [bs, 1] integers in [1, 10)
+        drawn from ``generator`` unless given; through the frozen programs
+        after ``freeze()``."""
         bs, K, _ = pose_samples.shape
-        t_input = torch.full((bs * K, 1), T, dtype=pose_samples.dtype,
-                             device=pose_samples.device)
+        dev = pose_samples.device
+        if T is not None:
+            t_input = torch.full((bs * K, 1), T, dtype=pose_samples.dtype, device=dev)
+        else:
+            if t_int is None:
+                t_int = torch.randint(1, 10, (bs, 1), generator=generator, device=dev)
+            t_input = (t_int.to(pose_samples.dtype) / 1e5).repeat_interleave(K, dim=0)
         frozen = self.frozen_programs()
         if frozen is not None:
             return frozen.get_energy(batch, pose_samples, t_input, geometry)
         return self._energies(batch["zero_mean_pts"], batch["pts_center"], pose_samples,
                               t_input, geometry)
+
+    # ------------------------------------------------------------------
+    # likelihood (ref posenet.py:133-147)
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def likelihood(self, batch, poses: torch.Tensor, num_steps: int = 500):
+        """PF-ODE log-likelihoods of poses [bs, pose_dim] (zero-centred
+        translations) under the EMA shadow, with the exact divergence
+        (``agent.py:614-626``): returns (latent z [bs, pose_dim], bits
+        [bs]).  A frozen agent raises."""
+        if self.frozen_programs() is not None:
+            raise NotImplementedError("the frozen path has no likelihood")
+        with self.ema_weights():
+            feat = self._encode(batch["zero_mean_pts"], train=False)
+            score_fn = self._head_score_fn(feat, create_graph=True)
+            return ode_likelihood(score_fn, poses, self.sde, self.cfg.pose_mode,
+                                  num_steps=num_steps)
 
     # ------------------------------------------------------------------
     # hypothesis aggregation (ref posenet_agent.py:450-463)

@@ -4,8 +4,10 @@ The port's own format, one ``torch.save`` file per checkpoint: the model's
 ``state_dict`` (live parameters and BatchNorm running statistics), the step,
 the optimizer moments and the EMA shadow and count.  The layout follows the
 reference: ``<dir>/ckpt_epoch{N}`` beside a ``clock.json``.  Unlike the
-reference (``posenet_agent.py:117-141``) the EMA shadow is saved.  Reading
-the JAX package's orbax checkpoints is not ported yet.
+reference (``posenet_agent.py:117-141``) the EMA shadow is saved.  The JAX
+package's orbax checkpoints are converted to this format where JAX runs
+(``tools/orbax_to_port.py``), released ``.pth`` files by
+``genpose_tpu_torch/tools/port_torch_ckpt.py``.
 """
 
 from __future__ import annotations

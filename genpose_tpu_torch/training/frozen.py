@@ -48,8 +48,12 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from genpose_tpu_torch.diffusion.samplers import HeunChain, RK45, integrate_adaptive, prior_rows
+from genpose_tpu_torch.diffusion.samplers import ODEChain, RK45, integrate_adaptive, prior_rows
 from genpose_tpu_torch.models.layers import cast_weights_
+
+# The samplers with frozen programs; PC, EDM, trajectories and the
+# likelihood run only eagerly, and a frozen agent asked for them raises.
+FROZEN_SAMPLERS = ("ode", "ode_adaptive")
 
 # Calls served by frozen programs since import.  A run that resets it and
 # reads it afterwards shows whether a path went through them.
@@ -191,7 +195,12 @@ class FrozenPrograms:
                sampler: str, num_steps: int, T0: Optional[float],
                init_x: Optional[torch.Tensor], geometry):
         """``PoseAgent.sample`` through the frozen programs: returns
-        (pred_pose [bs, repeat_num, pose_dim], geometry)."""
+        (pred_pose [bs, repeat_num, pose_dim], geometry).  Only the ``ode``
+        (Heun) and ``ode_adaptive`` samplers have frozen programs; any other
+        raises before anything runs."""
+        if sampler not in FROZEN_SAMPLERS:
+            raise NotImplementedError(
+                f"the frozen path has no {sampler!r} sampler (it has {FROZEN_SAMPLERS})")
         agent, K = self.agent, repeat_num
         pts, center = batch["zero_mean_pts"], batch["pts_center"]
         bs = pts.shape[0]
@@ -205,7 +214,7 @@ class FrozenPrograms:
 
         def build(pts, center, geometry, x0):
             if sampler == "ode":
-                heun = HeunChain(sde, pose_mode, num_steps, T, pts.device)
+                heun = ODEChain(sde, pose_mode, num_steps, T, pts.device)
 
                 def chain():
                     score_fn, center_rep = twin._score_fn_and_center(pts, center, geometry, K)
@@ -224,7 +233,7 @@ class FrozenPrograms:
                 fns = [start, lambda: rk.attempt(held["score_fn"]),
                        lambda: rk.finish(held["score_fn"], held["center"])]
                 return fns, lambda *segs: integrate_adaptive(*segs, rk.done)[0]
-            raise NotImplementedError(f"sampler {sampler!r} is not ported")
+            raise AssertionError(sampler)
 
         key = ("sample", bs, K, pts.shape[1], sampler, num_steps, T, init_x is not None)
         out = self._run(key, (pts, center, geometry, x0), build)

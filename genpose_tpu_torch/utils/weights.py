@@ -17,7 +17,9 @@ serving pipeline samples with the score agent's EMA shadow
 (``agent.py:477``) and ranks with the energy agent's live params
 (``agent.py:583``).  ``from_jax_train_state`` carries a whole JAX training
 state (params, BatchNorm statistics, EMA shadow, step, optimizer moments)
-into a port agent.
+into a port agent.  ``to_jax_variables`` goes the other way: a port model's
+weights in the flax layout (the template that ``utils/torch_port.py``
+checks an upstream checkpoint against).
 """
 
 from __future__ import annotations
@@ -61,6 +63,36 @@ def from_jax_variables(params: Mapping, batch_stats: Mapping) -> Dict[str, torch
         sd[".".join([*mods, stat_names[name]])] = _tensor(leaf)
         sd[".".join([*mods, "num_batches_tracked"])] = torch.tensor(0, dtype=torch.long)
     return sd
+
+
+def to_jax_variables(model: nn.Module) -> Tuple[Dict, Dict]:
+    """A port model's weights as the JAX package's (params, batch_stats):
+    nested dicts of float32 numpy arrays under the flax names, the inverse
+    of ``from_jax_variables`` (``num_batches_tracked`` has no flax
+    counterpart and is left out)."""
+    params: Dict = {}
+    stats: Dict = {}
+
+    def put(tree, name: str, leaf: str, value: torch.Tensor) -> None:
+        node = tree
+        for part in name.split(".") if name else ():
+            node = node.setdefault(part, {})
+        node[leaf] = value.detach().float().cpu().numpy().copy()
+
+    for name, m in model.named_modules():
+        if isinstance(m, nn.Linear):
+            put(params, name, "kernel", m.weight.t())
+            if m.bias is not None:
+                put(params, name, "bias", m.bias)
+        elif isinstance(m, nn.BatchNorm1d):
+            put(params, name, "scale", m.weight)
+            put(params, name, "bias", m.bias)
+            put(stats, name, "mean", m.running_mean)
+            put(stats, name, "var", m.running_var)
+        else:
+            for leaf, t in [*m.named_parameters(recurse=False), *m.named_buffers(recurse=False)]:
+                put(params, name, leaf, t)
+    return params, stats
 
 
 def shadow_from_jax(ema_shadow: Mapping, params: Mapping, names, device) -> Dict[str, torch.Tensor]:

@@ -49,7 +49,9 @@ def test_scan_sees_the_whole_port():
                  "genpose_tpu_torch/runners/evaluation_single.py",
                  "genpose_tpu_torch/runners/evaluation_tracking.py",
                  "genpose_tpu_torch/eval/nocs_eval.py", "genpose_tpu_torch/data/dataset_utils.py",
-                 "genpose_tpu_torch/utils/png.py", "genpose_tpu_torch/utils/tracking.py"):
+                 "genpose_tpu_torch/utils/png.py", "genpose_tpu_torch/utils/tracking.py",
+                 "genpose_tpu_torch/utils/torch_port.py",
+                 "genpose_tpu_torch/tools/port_torch_ckpt.py"):
         assert must in names
 
 
@@ -132,9 +134,40 @@ def test_unported_configurations_raise():
 
     Config = torch_config.Config
     for cfg in (Config(pointnet2_params="full"), Config(pts_encoder="pointnet"),
-                Config(sde_mode="vp")):
+                Config(pose_mode="euler_xyz", regression_head="RT")):
         with pytest.raises(NotImplementedError):
             build_model(cfg, "score", device="cpu")
+
+
+@pytest.mark.parametrize("ask", ["pc", "edm", "return_process", "likelihood"])
+def test_frozen_agent_raises_for_what_it_has_no_program_for(ask):
+    """A frozen agent serves ``ode`` and ``ode_adaptive``; asked for the PC
+    or EDM sampler, a trajectory or a likelihood it raises, naming what was
+    asked, before any work, and never runs eagerly behind the caller's back;
+    once its weights change it is no longer frozen and runs them eagerly."""
+    from genpose_tpu_torch.training import frozen
+    from genpose_tpu_torch.training.agent import PoseAgent
+    from genpose_tpu_torch.utils.weights import perturb_
+
+    cfg = torch_config.Config(num_points=32, sde_mode="edm" if ask == "edm" else "ve")
+    agent = PoseAgent(cfg, "score", device="cpu").freeze()
+    gen = torch.Generator().manual_seed(0)
+    batch = {"zero_mean_pts": torch.randn(1, 32, 3, generator=gen) * 0.1,
+             "pts_center": torch.zeros(1, 3)}
+    before, dispatches = gen.get_state(), frozen.dispatches
+    call = {
+        "pc": lambda: agent.sample(batch, gen, repeat_num=2, sampler="pc", num_steps=3),
+        "edm": lambda: agent.sample(batch, gen, repeat_num=2, sampler="edm", num_steps=3),
+        "return_process": lambda: agent.sample(batch, gen, repeat_num=2, sampler="ode",
+                                               num_steps=3, return_process=True),
+        "likelihood": lambda: agent.likelihood(batch, torch.zeros(1, 9), num_steps=3),
+    }[ask]
+    with pytest.raises(NotImplementedError, match="frozen path has no"):
+        call()
+    assert torch.equal(gen.get_state(), before) and frozen.dispatches == dispatches
+    perturb_(agent.model, seed=1)  # the weights change: the agent runs eagerly
+    out = call()
+    assert all(torch.isfinite(o).all() for o in (out if isinstance(out, tuple) else (out,)))
 
 
 @pytest.mark.parametrize("bad", [{"compute_dtype": "float16"}, {"head_dtype": "fp32"},

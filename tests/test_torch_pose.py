@@ -101,8 +101,17 @@ def test_ve_sde_matches_jax():
 
 @pytest.mark.parametrize("mode", ["vp", "subvp", "edm", "nope"])
 def test_other_sdes_are_not_ported(mode):
-    with pytest.raises(NotImplementedError):
-        init_sde(mode)
+    """Every SDE of the JAX package is ported now (its schedules are held
+    against JAX in ``test_torch_sde_samplers.py``): each builds with the
+    JAX eps and T, and only an unknown mode raises."""
+    if mode == "nope":
+        with pytest.raises(NotImplementedError):
+            init_sde(mode)
+        return
+    from genpose_tpu.diffusion.sde import init_sde as jax_init_sde
+
+    sde, want = init_sde(mode), jax_init_sde(mode)
+    assert (sde.mode, sde.eps, sde.T) == (want.mode, want.eps, want.T)
 
 
 @pytest.mark.parametrize("num", [2, 5, 500])
