@@ -108,13 +108,42 @@ non-zero and prints no result line):
    CPU on a small batch with the same injected draws (PC, VP, EDM samples
    and the energies of the CPU's samples within CPU_GPU_TOL scaled) and the
    PF-ODE likelihood of two poses on both (FPS 3 + ball query 3 on the
-   card).
+   card);
+15. the training CLI, ``runners/trainer.py::main`` as a user calls it, on a
+   synthetic NOCS-format tree written by the port's ``make_synthetic_nocs_dir``
+   at 640x480 (CLI_CAMERA_SCENES CAMERA and CLI_REAL_SCENES Real train
+   scenes, two full batches of 192 an epoch after the CAMERA:Real
+   resampling; the scene count is the only cut) at the released recipe's
+   width (bs=192, N=1024, repeat 20, Adam lr 1e-3 with warm-up, clip 1.0,
+   EMA 0.999, the default DZI, 2-D deformation and point augmentation,
+   Heun-500 in the eval epoch): first one train epoch of each loader mode
+   (8 workers; the process pool forks after CUDA init) with samples/s and
+   bit-identical batches, one sample's host time split by function (the
+   three PNG decodes, the crops, ``defor_2D``, back-projection; and one
+   colour image decoded from Paeth-filtered rows), FPS and ball query
+   against their plain versions on a loader batch's clouds (tiled
+   duplicate points: exact ties); then ``--agent_type score --loader_mode
+   process`` for 2 epochs with ``--eval_freq 1``, two resumes of one epoch each (``--use_pretrain
+   true --n_epochs 3``, then 4: the clock advances one epoch each time),
+   the first with the default thread loader and the second with the
+   process loader, each profiled: seconds per step fed from the loader
+   beside phase 7's in-memory step, the share of the epoch spent waiting
+   for batches, the device busy share; ``energy_with_ranking`` from the
+   score checkpoint (K=5 candidates by ``ode_adaptive``, one epoch, the
+   process loader); and
+   on Real/test ``--eval`` (repeat 20), ``--results_path``,
+   ``--pred`` and ``--likelihood`` (CLI_LIKELIHOOD_STEPS steps) with
+   ``--max_eval_num 0``.  Checks: finite logged losses, every artifact of
+   each flow, FPS 3 + ball query 3 in every score step, energy iteration,
+   eval-epoch and inference sampling, energy and likelihood call, and no
+   launch outside them.
 
-Checkpoints and metrics of phase 7, the trees and results of phases 9-12
-and the converted checkpoints of phase 14 go under ``build/chip_smoke/`` in
-the checkout.  The last lines are the training numbers, the evaluation and
-tracking numbers, the frozen arms, the bfloat16 arms, the checkpoint and
-sampler numbers, the card line, one JSON line describing each kernel, and
+Checkpoints and metrics of phase 7, the trees and results of phases 9-12,
+the converted checkpoints of phase 14 and the tree and results of phase 15
+go under ``build/chip_smoke/`` in the checkout.  The last lines are the
+training numbers, the evaluation and tracking numbers, the frozen arms, the
+bfloat16 arms, the checkpoint and sampler numbers, the training CLI's
+numbers, the card line, one JSON line describing each kernel, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2067,6 +2096,414 @@ def new_sampler_cpu_gpu_agreement(dev, card):
     return {"diffs": diffs, "likelihood": likelihood}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the training CLI on a NOCS-format tree
+# ---------------------------------------------------------------------------
+
+# CAMERA and Real train scenes of phase 15's tree: the CAMERA:Real 3:1
+# resampling gives 384 + 3 x 32 = 480 indices, two full batches of 192 an epoch
+CLI_CAMERA_SCENES, CLI_REAL_SCENES = 384, 32
+CLI_LIKELIHOOD_STEPS = 50  # phase 15's likelihood flow; 500 is the config default
+
+
+@contextlib.contextmanager
+def metering(*targets):
+    """Within the block, each call of ``owner.name`` for (owner, name) in
+    ``targets`` (methods of a class, so every instance is metered) is
+    recorded under ``name``: host seconds with the device synchronised on
+    both sides, and the FPS and ball-query launches inside it."""
+    from genpose_tpu_torch.ops import ball_query_cuda, fps_cuda
+
+    calls = {name: [] for _, name in targets}
+    saved = [(owner, name, vars(owner)[name]) for owner, name in targets]
+    for owner, name, fn in saved:
+        def wrapper(*args, _fn=fn, _name=name, **kwargs):
+            torch.cuda.synchronize()
+            f0, b0 = fps_cuda.launches, ball_query_cuda.launches
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            calls[_name].append({"s": time.perf_counter() - t0, "fps": fps_cuda.launches - f0,
+                                 "ball_query": ball_query_cuda.launches - b0})
+            return out
+
+        setattr(owner, name, wrapper)
+    try:
+        yield calls
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+@contextlib.contextmanager
+def batch_waits():
+    """Within the block, the seconds each ``DataLoader`` iterator's consumer
+    waits for its next batch."""
+    from genpose_tpu_torch.data.loader import DataLoader
+
+    waits, orig = [], DataLoader.__iter__
+
+    def timed_iter(self):
+        it = orig(self)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                waits.append(time.perf_counter() - t0)
+                yield item
+        finally:
+            it.close()
+
+    DataLoader.__iter__ = timed_iter
+    try:
+        yield waits
+    finally:
+        DataLoader.__iter__ = orig
+
+
+def run_cli(argv, out_dir):
+    """``trainer.main(argv)`` with the launch counters set to 0 before and
+    read after, and the PoseAgent methods that launch the kernels metered."""
+    from genpose_tpu_torch.ops import ball_query_cuda, fps_cuda
+    from genpose_tpu_torch.runners import trainer
+    from genpose_tpu_torch.training.agent import PoseAgent
+
+    methods = ("train_step", "ema_loss", "train_step_energy", "sample", "get_energy",
+               "likelihood")
+    with metering(*((PoseAgent, m) for m in methods)) as calls, batch_waits() as waits:
+        fps_cuda.launches = ball_query_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.main(argv, out_dir=out_dir)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {"fps": fps_cuda.launches, "ball_query": ball_query_cuda.launches}
+    # every launch of the run happened inside a metered call, 3 + 3 in each
+    # (the energy step takes the candidates' geometry: 0 + 0)
+    for name, cs in calls.items():
+        for c in cs:
+            want = (0, 0) if name == "train_step_energy" else (3, 3)
+            if (c["fps"], c["ball_query"]) != want:
+                raise AssertionError(f"{argv[:2]}: a {name} call launched {c}, expected {want}")
+    inside = {k: sum(c[k] for cs in calls.values() for c in cs) for k in launches}
+    if inside != launches or not launches["fps"]:
+        raise AssertionError(f"{argv[:2]}: launches {launches}, inside metered calls {inside}")
+    return {"calls": {k: v for k, v in calls.items() if v}, "waits": waits, "wall_s": wall,
+            "launches": launches}
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def paeth_png(rgb: np.ndarray) -> bytes:
+    """An RGB image as a PNG whose rows all use the Paeth filter, as encoders
+    other than cv2's may write them (``utils/png.py`` decodes Paeth byte by
+    byte in Python)."""
+    import struct
+    import zlib
+
+    from genpose_tpu_torch.utils import png
+
+    h = rgb.shape[0]
+    rows = rgb.reshape(h, -1).astype(np.int16)
+    a, b, c = (np.zeros_like(rows) for _ in range(3))
+    a[:, 3:], b[1:], c[1:, 3:] = rows[:, :-3], rows[:-1], rows[:-1, :-3]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    raw = np.concatenate([np.full((h, 1), 4, np.uint8), ((rows - pred) % 256).astype(np.uint8)], 1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    ihdr = struct.pack(">IIBBBBB", rgb.shape[1], h, 8, 2, 0, 0, 0)
+    data = (png._SIGNATURE + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
+            + chunk(b"IEND", b""))
+    if not np.array_equal(png.decode(data), rgb):
+        raise AssertionError("the Paeth-filtered PNG does not decode to its image")
+    return data
+
+
+def sample_host_split(tree: str, n: int = 24):
+    """One training sample's host time (``NOCSDataset.fetch`` at the
+    released recipe's defaults, one thread), split by the functions it
+    calls: the three PNG decodes, the DZI box, the three crops,
+    ``defor_2D`` and back-projection + sampling; medians over ``n`` samples.
+    Also the decode of one colour image re-encoded with Paeth rows."""
+    from genpose_tpu_torch.data import nocs
+    from genpose_tpu_torch.utils import png
+
+    parts, per = {}, []
+    names = {"load_depth": "decode depth", "aug_bbox_DZI": "DZI box",
+             "crop_resize_by_warp_affine": "3 crops", "defor_2D": "defor_2D",
+             "backproject_and_sample": "back-projection + sampling"}
+    saved = {k: getattr(nocs, k) for k in list(names) + ["png"]}
+
+    def timed(label, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            parts[label] = parts.get(label, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    class _Png:  # png.imread, timed by the file it reads
+        @staticmethod
+        def imread(path, unchanged=False):
+            label = "decode color" if path.endswith("_color.png") else "decode mask"
+            return timed(label, png.imread)(path, unchanged)
+
+    for k, label in names.items():
+        setattr(nocs, k, timed(label, saved[k]))
+    nocs.png = _Png
+    try:
+        ds = nocs.NOCSDataset(tree)
+        for i in range(min(n, len(ds))):
+            parts.clear()
+            t0 = time.perf_counter()
+            ds.fetch(i, 1)
+            total = time.perf_counter() - t0
+            per.append({**parts, "other": total - sum(parts.values()), "total": total})
+    finally:
+        for k, v in saved.items():
+            setattr(nocs, k, v)
+    split = {k: float(np.median([p.get(k, 0.0) for p in per])) * 1e3 for k in per[0]}
+    color = png.imread(str(Path(tree) / (ds.img_list[0] + "_color.png")))[:, :, ::-1]
+    data = paeth_png(np.ascontiguousarray(color))
+    t0 = time.perf_counter()
+    png.decode(data)
+    split["decode color if Paeth-filtered"] = (time.perf_counter() - t0) * 1e3
+    return split
+
+
+def loader_modes(tree: str, card: str):
+    """One train epoch of each loader mode at the config's defaults (8
+    workers, bs=192, N=1024): samples/s (the process pool's fork
+    included) and bit-identical batches.  Returns the rates, the batches an
+    epoch and the thread mode's first batch."""
+    from genpose_tpu_torch.config import get_config
+    from genpose_tpu_torch.data.loader import get_data_loaders_from_cfg
+
+    epochs, rates = {}, {}
+    for mode in ("thread", "process"):
+        cfg = get_config(["--data_path", tree, "--loader_mode", mode])
+        loader = get_data_loaders_from_cfg(cfg, ["train"])["train_loader"]
+        t0 = time.perf_counter()
+        epochs[mode] = list(loader)
+        secs = time.perf_counter() - t0
+        loader.close()
+        n = sum(len(b["path"]) for b in epochs[mode])
+        rates[mode] = {"samples": n, "seconds": secs, "samples_per_s": n / secs,
+                       "workers": cfg.num_workers, "batch_size": cfg.batch_size,
+                       "points": cfg.num_points}
+    a, b = epochs["thread"], epochs["process"]
+    if len(a) != len(b) or len(a) < 2 or any(len(x["path"]) != B_TRAIN for x in a):
+        raise AssertionError(f"loader epochs of {len(a)} / {len(b)} batches, expected >= 2 of "
+                             f"{B_TRAIN}")
+    for x, y in zip(a, b):
+        for k in x:
+            same = x[k] == y[k] if k == "path" else np.array_equal(x[k], y[k])
+            if not same or (k != "path" and x[k].dtype != y[k].dtype):
+                raise AssertionError(f"thread and process loaders differ at {k!r}")
+    r = rates["thread"]
+    print(f"loader, one train epoch (CAMERA+Real resampled, bs={r['batch_size']}, "
+          f"N={r['points']}, {r['workers']} workers; the process pool forked after CUDA init): "
+          + "; ".join(f"{m} {r['samples']} samples in {r['seconds']:.3f} s = "
+                      f"{r['samples_per_s']:.2f} samples/s" for m, r in rates.items())
+          + f"; batches bit-identical; {card}", flush=True)
+    return rates, len(a), a[0]
+
+
+def training_cli_path(dev, card, in_memory_step_s: float):
+    """Phase 15: ``runners/trainer.py::main`` as a user calls it, on a
+    synthetic NOCS-format tree of CLI_CAMERA_SCENES + CLI_REAL_SCENES train
+    scenes at 640x480 (the scene count is the only cut), at the released
+    recipe's full width: score training, its resume, energy with ranking,
+    then the eval, results, prediction and likelihood flows on Real/test."""
+    import pickle
+    import shutil
+
+    from genpose_tpu_torch.config import get_config
+    from genpose_tpu_torch.data.process import process_batch
+    from genpose_tpu_torch.data.synthetic import make_synthetic_nocs_dir
+    from genpose_tpu_torch.runners import trainer
+    from genpose_tpu_torch.training.checkpoints import load_clock
+
+    root = OUT_DIR / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    tree = make_synthetic_nocs_dir(str(root / "nocs"), n_camera_scenes=CLI_CAMERA_SCENES,
+                                   n_real_scenes=CLI_REAL_SCENES, seed=0)
+    tree_s = time.perf_counter() - t0
+    out = str(root / "results")
+    result = {"tree_s": tree_s, "scenes": {"CAMERA/train": CLI_CAMERA_SCENES,
+                                           "Real/train": CLI_REAL_SCENES}}
+
+    rates, per_epoch, first = loader_modes(tree, card)
+    defaults = get_config([])
+    repeat = defaults.repeat_num
+    result["loader"] = rates
+    split = sample_host_split(tree)
+    result["sample_host_ms"] = split
+    print("one training sample's host time (ms, median of 24, one thread): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + f"; {card}", flush=True)
+
+    # the kernels against their plain versions on a loader batch's clouds
+    pts = process_batch(first, "rot_matrix", device=dev)["zero_mean_pts"]
+    clouds = pts.cpu().numpy()
+    unique = [len(np.unique(c, axis=0)) for c in clouds]
+    dup = sum(u < c.shape[0] for u, c in zip(unique, clouds))
+    if not dup:
+        raise AssertionError("no loader cloud holds a duplicate point: no ties were met")
+    held = hold_path_geometry(pts, "loader batch")
+    result["loader_clouds"] = {"with_duplicates": dup, "clouds": len(clouds),
+                               "min_unique_points": int(min(unique))}
+    print(f"FPS and ball query equal their plain versions on a loader batch ({held}; "
+          f"{dup} of {len(clouds)} clouds hold exact duplicate points, the fewest distinct "
+          f"points in a cloud {min(unique)})", flush=True)
+
+    ckpt_dir = Path(out) / "ckpts" / "cli_score"
+    common = ["--data_path", tree, "--seed", "0"]
+    # the two-epoch run and the energy run take the process pool, which keeps
+    # phase 15 short (an eval epoch's first train batch costs ~2 batches of
+    # fetching); the resumed epochs measure both modes, the default first
+    score = run_cli(["--agent_type", "score", "--n_epochs", "2", "--eval_freq", "1",
+                     "--loader_mode", "process", "--log_dir", "cli_score"] + common, out)
+    steps = score["calls"]["train_step"]
+    # 2 epochs; an eval epoch after each samples a train and a val batch
+    if len(steps) != 2 * per_epoch or len(score["calls"]["sample"]) != 4:
+        raise AssertionError(f"score run: {len(steps)} steps, "
+                             f"{len(score['calls']['sample'])} eval samplings")
+    saved_clock = load_clock(str(ckpt_dir))
+    losses = [r["value"] for r in _jsonl(Path(out) / "logs" / "cli_score" / "metrics.jsonl")]
+    if (saved_clock != {"epoch": 3, "minibatch": 0, "step": 2 * per_epoch}
+            or not np.all(np.isfinite(losses))):
+        raise AssertionError(f"score run: clock {saved_clock}, logged values {losses}")
+    result["score"] = {"steps": len(steps), "train_step_s": [c["s"] for c in steps],
+                       "in_memory_s_per_step": in_memory_step_s, "wall_s": score["wall_s"],
+                       "waits_s": score["waits"], "launches": score["launches"],
+                       "clock": saved_clock}
+    print(f"training CLI score (bs={B_TRAIN}, N={N_POINTS}, repeat {repeat}, Adam, EMA 0.999, "
+          f"DZI + defor_2D + point augmentation, process loader; 2 epochs of {per_epoch} steps "
+          f"+ an eval epoch each): {score['wall_s']:.3f} s; train_step "
+          f"{[round(c['s'], 4) for c in steps]} s (phase 7 in memory {in_memory_step_s:.4f} s); "
+          f"clock {saved_clock}; launches {score['launches']}; {card}", flush=True)
+
+    def resumed_epoch(mode: str):
+        """One more epoch by ``--use_pretrain`` with the ``mode`` loader,
+        profiled on the device: the clock must advance one epoch."""
+        before, holder = load_clock(str(ckpt_dir)), {}
+        prof = device_profile(lambda: holder.update(run=run_cli(
+            ["--agent_type", "score", "--n_epochs", str(before["epoch"]), "--eval_freq", "100",
+             "--use_pretrain", "true", "--loader_mode", mode, "--log_dir", "cli_score"] + common,
+            out)), f"a resumed loader-fed epoch ({mode} loader)", cpu=False)
+        run, clock = holder["run"], load_clock(str(ckpt_dir))
+        want = dict(before, epoch=before["epoch"] + 1, step=before["step"] + per_epoch)
+        if clock != want or not (ckpt_dir / f"ckpt_epoch{clock['epoch']}").exists():
+            raise AssertionError(f"resume from {before}: clock {clock}, expected {want}")
+        rows = _jsonl(Path(out) / "logs" / "cli_score" / "metrics.jsonl")
+        epoch_s = [r["value"] for r in rows if r["tag"] == "epoch_time_s"][-1]
+        busy = None if prof["device_ms"] is None else prof["device_ms"] / 1e3 / epoch_s
+        waits = run["waits"]
+        out_row = {"loader_mode": mode, "clock_before": before, "clock": clock,
+                   "epoch_s": epoch_s, "wall_s": run["wall_s"],
+                   "train_step_s": [c["s"] for c in run["calls"]["train_step"]],
+                   "waits_s": waits, "wait_share": sum(waits) / epoch_s,
+                   "s_per_step_fed": epoch_s / per_epoch, "device_ms": prof["device_ms"],
+                   "busy_share": busy, "launches": run["launches"]}
+        print(f"training CLI resumed epoch, {mode} loader: {epoch_s:.3f} s for {per_epoch} "
+              f"steps = {epoch_s / per_epoch:.3f} s per step fed from the loader (train_step "
+              f"{[round(x, 4) for x in out_row['train_step_s']]} s; phase 7 in memory "
+              f"{in_memory_step_s:.4f} s), waiting for batches {sum(waits):.3f} s = "
+              f"{sum(waits) / epoch_s:.4f} of it, device busy "
+              f"{'not measured' if busy is None else f'{busy:.4f}'} of it; clock {before} -> "
+              f"{clock}; launches {run['launches']}; {card}", flush=True)
+        return out_row
+
+    result["score"]["resumed"] = [resumed_epoch("thread"), resumed_epoch("process")]
+    last_ckpt = ckpt_dir / f"ckpt_epoch{load_clock(str(ckpt_dir))['epoch']}"
+
+    energy = run_cli(["--agent_type", "energy_with_ranking", "--pretrained_score_model_path",
+                      str(last_ckpt), "--sampler_mode", "ode_adaptive", "--n_epochs", "1",
+                      "--loader_mode", "process", "--log_dir", "cli_energy"] + common, out)
+    iters = list(zip(energy["calls"]["sample"], energy["calls"]["train_step_energy"]))
+    if (len(iters) != per_epoch
+            or not (Path(out) / "ckpts" / "cli_energy" / "ckpt_epoch2").exists()):
+        raise AssertionError(f"energy_with_ranking: {len(iters)} iterations")
+    rows = _jsonl(Path(out) / "logs" / "cli_energy" / "metrics.jsonl")
+    if not all(np.isfinite(r["value"]) for r in rows):
+        raise AssertionError(f"energy_with_ranking logged {rows}")
+    result["energy"] = {"iterations": len(iters),
+                        "iteration_s": [a["s"] + b["s"] for a, b in iters],
+                        "wall_s": energy["wall_s"], "waits_s": energy["waits"],
+                        "launches": energy["launches"]}
+    print(f"training CLI energy_with_ranking (K=5 candidates by ode_adaptive, 1 epoch, process "
+          f"loader): iterations {[round(x, 4) for x in result['energy']['iteration_s']]} s, "
+          f"waits {[round(x, 3) for x in energy['waits']]} s, wall {energy['wall_s']:.3f} s; "
+          f"launches {energy['launches']} (FPS 3 + ball query 3 an iteration); {card}",
+          flush=True)
+
+    # the inference flows on Real/test (one batch of CLI_REAL_SCENES objects)
+    test = ["--max_eval_num", "0"] + common
+    flows = {"eval": run_cli(["--agent_type", "score", "--eval", "true", "--log_dir",
+                              "cli_score"] + test, out)}
+    res_dir = (Path(out) / "inference_results" / "cli_score"
+               / f"{defaults.test_source}_{defaults.sampler_mode[0]}_{defaults.sampling_steps}")
+    results_pkl = res_dir / "results.pkl"
+    before = results_pkl.read_bytes()
+    t0 = time.perf_counter()
+    trainer.main(["--results_path", str(results_pkl)] + common, out_dir=out)
+    flows["results_path_s"] = time.perf_counter() - t0
+    if results_pkl.read_bytes() != before or not (res_dir / "average_results.pkl").exists():
+        raise AssertionError("--results_path: the input changed or average_results.pkl is missing")
+    flows["pred"] = run_cli(["--agent_type", "energy_with_ranking", "--pretrained_score_model_path",
+                             str(last_ckpt), "--pred", "true", "--log_dir",
+                             "cli_energy"] + test, out)
+    flows["likelihood"] = run_cli(["--agent_type", "score", "--likelihood", "true",
+                                   "--sampling_steps", str(CLI_LIKELIHOOD_STEPS), "--log_dir",
+                                   "cli_score"] + test, out)
+    with open(results_pkl, "rb") as f:
+        res = pickle.load(f)
+    with open(Path(out) / "predictions" / "cli_energy" / "prediction_results.pkl", "rb") as f:
+        pred = pickle.load(f)
+    with open(Path(out) / "inference_results" / "cli_score"
+              / f"{defaults.test_source}_likelihood" / "likelihood.json") as f:
+        lik = json.load(f)
+    n_obj = res["gt_pose"].shape[0]
+    checks = {
+        "metrics.json": (res_dir / "metrics.json").exists(),
+        "results.pkl": res["pred_pose"].shape == (n_obj, repeat, 9)
+        and np.isfinite(res["pred_pose"]).all() and n_obj == CLI_REAL_SCENES,
+        "eval samplings": len(flows["eval"]["calls"]["sample"]) == repeat,
+        "prediction_results.pkl": len(pred) == 1
+        and pred[0]["pred_pose"].shape == (n_obj, repeat, 7)
+        and np.isfinite(pred[0]["energy"]).all() and np.isfinite(pred[0]["average_pred_pose"]).all(),
+        "likelihood.json": lik["n"] == n_obj and np.isfinite(lik["mean_bits"]),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"inference flows: {checks}")
+    result["flows"] = {
+        "eval": {"wall_s": flows["eval"]["wall_s"], "launches": flows["eval"]["launches"],
+                 "sample_s": [c["s"] for c in flows["eval"]["calls"]["sample"]]},
+        "results_path_s": flows["results_path_s"],
+        "pred": {"wall_s": flows["pred"]["wall_s"], "launches": flows["pred"]["launches"]},
+        "likelihood": {"wall_s": flows["likelihood"]["wall_s"], "steps": CLI_LIKELIHOOD_STEPS,
+                       "launches": flows["likelihood"]["launches"],
+                       "mean_bits": lik["mean_bits"]}}
+    print(f"training CLI flows on Real/test ({n_obj} objects, one batch): --eval (repeat "
+          f"{repeat}, Heun-{defaults.sampling_steps}) {flows['eval']['wall_s']:.3f} s, launches {flows['eval']['launches']}; "
+          f"--results_path {flows['results_path_s']:.3f} s; --pred (K={repeat}, energy ranking) "
+          f"{flows['pred']['wall_s']:.3f} s, launches {flows['pred']['launches']}; --likelihood "
+          f"({CLI_LIKELIHOOD_STEPS} steps) {flows['likelihood']['wall_s']:.3f} s, launches "
+          f"{flows['likelihood']['launches']}; every artifact written; {card}", flush=True)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2146,6 +2583,11 @@ def main() -> int:
                           "total": t3 - t0}
     print(f"phase 14 took {phase14['seconds']}", flush=True)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cli = training_cli_path(dev, card, training["score"]["s_per_step"])
+    cli["seconds"] = time.perf_counter() - t0
+    print(f"phase 15 took {cli['seconds']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
 
     fps_launches = results["ode"][1]["fps"]
     bq_launches = results["ode"][1]["ball_query"]
@@ -2168,7 +2610,8 @@ def main() -> int:
     def path_launches(k):
         """A kernel's launches in each run of the evaluation and tracking
         paths, of the frozen arms of phase 12, of the bfloat16 arms of
-        phase 13 and of the checkpoint and sampler paths of phase 14."""
+        phase 13, of the checkpoint and sampler paths of phase 14 and of the
+        training CLI's runs of phase 15."""
         fz = frozen_arms
         return {"evaluation_stage2_launches": evaluation["launches"]["stage 2"][k],
                 "evaluation_stage3_launches": evaluation["launches"]["stage 3"][k],
@@ -2186,7 +2629,13 @@ def main() -> int:
                 "released_ckpt_serving_launches": phase14["released_ckpt"]["launches"][k],
                 **{f"{name}_serving_launches": arm["launches"][k]
                    for name, arm in phase14["samplers"].items()},
-                "likelihood_launches": phase14["cpu_gpu"]["likelihood"]["launches"][k]}
+                "likelihood_launches": phase14["cpu_gpu"]["likelihood"]["launches"][k],
+                "training_cli_score_run_launches": cli["score"]["launches"][k],
+                "training_cli_resumed_epochs_launches": [
+                    r["launches"][k] for r in cli["score"]["resumed"]],
+                "training_cli_energy_epoch_launches": cli["energy"]["launches"][k],
+                **{f"training_cli_{flow}_launches": cli["flows"][flow]["launches"][k]
+                   for flow in ("eval", "pred", "likelihood")}}
 
     kernels = [
         summary("fps", "genpose_tpu_torch/csrc/fps.cu", "genpose_tpu/ops/fps_pallas.py:75",
@@ -2209,6 +2658,7 @@ def main() -> int:
     print(json.dumps({"frozen": frozen_arms}), flush=True)
     print(json.dumps({"bf16": bf16}), flush=True)
     print(json.dumps({"checkpoints_and_samplers": phase14}), flush=True)
+    print(json.dumps({"training_cli": cli}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

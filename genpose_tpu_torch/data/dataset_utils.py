@@ -1,8 +1,10 @@
-"""Host-side image utilities of the evaluation path (counterpart of
-``genpose_tpu/data/dataset_utils.py``), without OpenCV.
+"""Host-side image utilities of the training and evaluation data
+(counterpart of ``genpose_tpu/data/dataset_utils.py``), without OpenCV.
 
-- ``get_2d_coord_np``, ``aug_bbox_eval``, ``get_bbox``, ``depth_to_pcl``,
-  ``sample_points``: numpy copies of the JAX package's functions.
+- ``get_2d_coord_np``, ``aug_bbox_DZI``, ``aug_bbox_eval``, ``get_bbox``,
+  ``depth_to_pcl``, ``sample_points``: numpy copies of the JAX package's
+  functions; ``aug_bbox_DZI`` draws from the caller's ``np.random.Generator``
+  in the JAX order.
 - ``get_affine_transform``: the CenterNet crop transform, solved from three
   point pairs as ``cv2.getAffineTransform`` does (6x6 Gaussian elimination
   with partial pivoting in double; bit for bit).
@@ -22,7 +24,13 @@
   splitmix64, a Lemire multiply-high draw and a partial Fisher-Yates.  The
   same ``np.random.Generator`` state gives the same cloud, bit for bit.
 
-``aug_bbox_DZI`` and ``defor_2D`` (training augmentation) are not ported.
+- ``defor_2D``: the training mask's boundary noise as the JAX package's
+  cv2 calls compute it.  ``cv2.erode(mask, kernel, rand_r)`` puts
+  ``rand_r`` in the ``dst`` slot, so ONE iteration runs, with cv2's 2x2
+  ellipse ``[[0, 1], [1, 1]]`` anchored at its centre (1, 1): a pixel's
+  erosion (dilation) is the min (max) of itself and its upper and left
+  neighbours, and a neighbour outside the image counts as nothing (cv2's
+  default border value for both).
 """
 
 from __future__ import annotations
@@ -32,13 +40,6 @@ import functools
 import numpy as np
 
 from genpose_tpu_torch.utils import png
-
-# NOCS camera intrinsics (ref ``datasets_genpose.py``; JAX ``data/nocs.py:54-60``)
-CAMERA_INTRINSICS = np.array(
-    [[577.5, 0, 319.5], [0, 577.5, 239.5], [0, 0, 1]], dtype=np.float32)
-REAL_INTRINSICS = np.array(
-    [[591.0125, 0, 322.525], [0, 590.16775, 244.11084], [0, 0, 1]], dtype=np.float32)
-
 
 @functools.lru_cache(maxsize=8)
 def _coord_map_cached(width: int, height: int, fmt: str) -> np.ndarray:
@@ -56,6 +57,36 @@ def _coord_map_cached(width: int, height: int, fmt: str) -> np.ndarray:
 def get_2d_coord_np(width: int, height: int, fmt: str = "CHW") -> np.ndarray:
     """Pixel-coordinate map [2, H, W] (or [H, W, 2]); cached and read-only."""
     return _coord_map_cached(width, height, fmt)
+
+
+def aug_bbox_DZI(dzi_params, bbox_xyxy, im_H, im_W, rng: np.random.Generator):
+    """Dynamic-zoom-in bbox jitter (ref ``datasets_utils.py:25-62``):
+    ``dzi_type`` ``uniform``, ``roi10d`` or anything else (no jitter).
+    Returns (bbox_center [2], scale)."""
+    x1, y1, x2, y2 = np.asarray(bbox_xyxy, dtype=np.float64).copy()
+    cx, cy = 0.5 * (x1 + x2), 0.5 * (y1 + y2)
+    bh, bw = y2 - y1, x2 - x1
+    dzi_type = dzi_params.dzi_type.lower()
+    if dzi_type == "uniform":
+        scale_ratio = 1 + dzi_params.scale_ratio * (2 * rng.random() - 1)
+        shift_ratio = dzi_params.shift_ratio * (2 * rng.random(2) - 1)
+        bbox_center = np.array([cx + bw * shift_ratio[0], cy + bh * shift_ratio[1]])
+        scale = max(y2 - y1, x2 - x1) * scale_ratio * dzi_params.pad_scale
+    elif dzi_type == "roi10d":
+        _a, _b = -0.15, 0.15
+        x1 += bw * (rng.random() * (_b - _a) + _a)
+        x2 += bw * (rng.random() * (_b - _a) + _a)
+        y1 += bh * (rng.random() * (_b - _a) + _a)
+        y2 += bh * (rng.random() * (_b - _a) + _a)
+        x1, x2 = np.clip([x1, x2], 0, im_W)
+        y1, y2 = np.clip([y1, y2], 0, im_H)
+        bbox_center = np.array([0.5 * (x1 + x2), 0.5 * (y1 + y2)])
+        scale = max(y2 - y1, x2 - x1) * dzi_params.pad_scale
+    else:
+        bbox_center = np.array([cx, cy])
+        scale = max(y2 - y1, x2 - x1)
+    scale = min(scale, max(im_H, im_W)) * 1.0
+    return bbox_center, scale
 
 
 def aug_bbox_eval(bbox_xyxy, im_H, im_W):
@@ -367,3 +398,36 @@ def backproject_and_sample(depth, K, xymap, mask, n_pts: int,
     pcl = np.stack([(xm - cx) * d * inv_fx, (ym - cy) * d * inv_fy, d * s], axis=-1)
     n_valid = pcl.shape[0]
     return n_valid, _native_sample(pcl.astype(f32, copy=False), n_pts, seed)
+
+
+def _erode_dilate_2x2(mask: np.ndarray):
+    """``cv2.erode`` and ``cv2.dilate`` of a 2-D mask by the 2x2 ellipse
+    ``[[0, 1], [1, 1]]``, one iteration, default anchor and border: each
+    pixel against itself, the pixel above and the pixel to its left, a
+    neighbour outside the image ignored."""
+    up_lo, left_lo = mask.copy(), mask.copy()  # outside: the pixel itself, neutral
+    up_lo[1:], left_lo[:, 1:] = mask[:-1], mask[:, :-1]
+    return (np.minimum(np.minimum(up_lo, left_lo), mask),
+            np.maximum(np.maximum(up_lo, left_lo), mask))
+
+
+def defor_2D(roi_mask, rng: np.random.Generator, rand_r=2, rand_pro=0.3):
+    """Random mask erode/dilate boundary noise (ref ``data_augmentation.py:10-33``),
+    as the JAX package's cv2 calls compute it (module docstring): with
+    probability ``rand_pro`` half of the pixels where erosion and dilation
+    differ, drawn without replacement, are cleared and the rest set.
+    ``rand_r`` is accepted and, as there, changes nothing."""
+    roi_mask = roi_mask.copy().squeeze()
+    if rng.random() > rand_pro:
+        return roi_mask
+    mask_erode, mask_dilate = _erode_dilate_2x2(roi_mask)
+    edge = mask_erode != mask_dilate
+    change_list = roi_mask[edge]
+    if change_list.size < 1:
+        return roi_mask
+    choose = rng.choice(change_list.size, change_list.size // 2, replace=False)
+    change_list = np.ones_like(change_list)
+    change_list[choose] = 0.0
+    roi_mask[edge] = change_list
+    roi_mask[roi_mask > 0.0] = 1.0
+    return roi_mask

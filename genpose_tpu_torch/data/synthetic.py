@@ -4,7 +4,7 @@
   clouds with consistent pose geometry: points on the faces of random boxes
   (NOCS-normalised models), scaled, rotated and placed 0.8-1.4 m in front
   of the camera, with the per-category FS-Net scale residuals and symmetry
-  descriptors of the NOCS loader (``genpose_tpu/data/nocs.py:79-110``).
+  descriptors of the NOCS loader (``data/nocs.py``).
 - ``make_synthetic_nocs_dir`` writes a miniature NOCS tree (CAMERA/Real
   lists, ``*_color/_depth/_mask.png``, ``*_label.pkl``, ``obj_models``,
   ``mug_handle.pkl``) of scenes drawn by ``render_scene``, and
@@ -25,58 +25,14 @@ from typing import Dict
 
 import numpy as np
 
-from genpose_tpu_torch.data.dataset_utils import CAMERA_INTRINSICS, REAL_INTRINSICS
+from genpose_tpu_torch.data.nocs import (
+    CAMERA_INTRINSICS,
+    CAT_NAMES,
+    REAL_INTRINSICS,
+    get_fs_net_scale,
+    get_sym_info,
+)
 from genpose_tpu_torch.utils import png
-
-CAT_NAMES = ["bottle", "bowl", "camera", "can", "laptop", "mug"]
-
-# FS-Net per-category mean sizes in mm (ref datasets_genpose.py:414-480)
-_FS_NET_UNITS = {
-    "bottle": (87, 220, 89),
-    "bowl": (165, 80, 165),
-    "camera": (88, 128, 156),
-    "can": (68, 146, 72),
-    "laptop": (346, 200, 335),
-    "mug": (146, 83, 114),
-    "02876657": (324 / 4, 874 / 4, 321 / 4),
-    "02880940": (675 / 4, 271 / 4, 675 / 4),
-    "02942699": (464 / 4, 487 / 4, 702 / 4),
-    "02946921": (450 / 4, 753 / 4, 460 / 4),
-    "03642806": (581 / 4, 445 / 4, 672 / 4),
-    "03797390": (670 / 4, 540 / 4, 497 / 4),
-}
-
-
-def get_fs_net_scale(cat_name: str, model: np.ndarray, nocs_scale: float):
-    """FS-Net scale residual + mean shape in mm (ref ``datasets_genpose.py:414-480``)."""
-    lx = model[:, 0].max() - model[:, 0].min()
-    ly = model[:, 1].max() - model[:, 1].min()
-    lz = model[:, 2].max() - model[:, 2].min()
-    lx_t, ly_t, lz_t = lx * nocs_scale * 1000, ly * nocs_scale * 1000, lz * nocs_scale * 1000
-    if cat_name not in _FS_NET_UNITS:
-        raise NotImplementedError(f"category {cat_name} not recorded")
-    ux, uy, uz = _FS_NET_UNITS[cat_name]
-    return (
-        np.array([lx_t - ux, ly_t - uy, lz_t - uz]),
-        np.array([ux, uy, uz]),
-    )
-
-
-def get_sym_info(cat_name: str, mug_handle: int = 1) -> np.ndarray:
-    """Symmetry descriptor (ref ``datasets_genpose.py:483-505``)."""
-    if cat_name in ("bottle", "bowl"):
-        return np.array([1, 1, 0, 1], dtype=np.int8)
-    if cat_name == "camera":
-        return np.array([0, 0, 0, 0], dtype=np.int8)
-    if cat_name == "can":
-        return np.array([1, 1, 1, 1], dtype=np.int8)
-    if cat_name == "laptop":
-        return np.array([0, 1, 0, 0], dtype=np.int8)
-    if cat_name == "mug" and mug_handle == 1:
-        return np.array([0, 1, 0, 0], dtype=np.int8)
-    if cat_name == "mug" and mug_handle == 0:
-        return np.array([1, 0, 0, 0], dtype=np.int8)
-    return np.array([0, 0, 0, 0], dtype=np.int8)
 
 
 def _random_rotation(rng: np.random.Generator) -> np.ndarray:

@@ -48,8 +48,6 @@ import numpy as np
 import torch
 
 from genpose_tpu_torch.config import Config, get_config
-from genpose_tpu_torch.data.dataset_utils import CAMERA_INTRINSICS as CAMERA_K
-from genpose_tpu_torch.data.dataset_utils import REAL_INTRINSICS as REAL_K
 from genpose_tpu_torch.data.dataset_utils import (
     aug_bbox_eval,
     backproject_and_sample,
@@ -58,12 +56,14 @@ from genpose_tpu_torch.data.dataset_utils import (
     get_bbox,
     load_depth,
 )
+from genpose_tpu_torch.data.nocs import CAMERA_INTRINSICS as CAMERA_K
+from genpose_tpu_torch.data.nocs import REAL_INTRINSICS as REAL_K
 from genpose_tpu_torch.eval.nocs_eval import compute_mAP, plot_mAP
 from genpose_tpu_torch.ops.pose import pose_to_rt, rt_to_matrix4
 from genpose_tpu_torch.training.agent import PoseAgent
 from genpose_tpu_torch.training.checkpoints import latest_checkpoint, load_checkpoint
 from genpose_tpu_torch.training.ranking import sort_poses_by_energy
-from genpose_tpu_torch.utils.device import resolve_device
+from genpose_tpu_torch.utils.device import runner_device
 
 def intrinsics_for_source(test_source: str) -> np.ndarray:
     return CAMERA_K if test_source == "val" else REAL_K
@@ -390,13 +390,6 @@ def write_headline(inference_res_dir: str, headline: dict) -> str:
         json.dump({k: float(v) for k, v in headline.items()}, f, indent=1)
     print("headline mAP:", {k: round(float(v), 1) for k, v in headline.items()})
     return path
-
-
-def runner_device(cfg: Config):
-    """The device a runner's ``main`` uses: ``cfg.device`` when it names the
-    CPU or a card, else the card."""
-    name = cfg.device
-    return resolve_device(name if name == "cpu" or name.startswith("cuda") else "cuda")
 
 
 def load_agent(cfg: Config, mode: str, model_dir: str, device) -> PoseAgent:

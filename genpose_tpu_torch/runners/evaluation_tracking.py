@@ -51,11 +51,11 @@ from genpose_tpu_torch.runners.evaluation_single import (
     load_agent,
     mrcnn_path,
     pad_rows,
-    runner_device,
     zero_center_batch,
 )
 from genpose_tpu_torch.training.agent import PoseAgent
 from genpose_tpu_torch.training.ranking import sort_poses_by_energy
+from genpose_tpu_torch.utils.device import runner_device
 from genpose_tpu_torch.utils.tracking import add_noise_to_RT, srt_to_pose9d
 
 

@@ -1,4 +1,14 @@
-"""Training loops (counterpart of ``genpose_tpu/runners/trainer.py:82-212``).
+"""Training and inference CLI (counterpart of ``genpose_tpu/runners/trainer.py``).
+
+Usage (the same flags and defaults as ``python -m genpose_tpu.runners.trainer``;
+``--device cpu`` runs on the CPU, any other value on the card):
+
+    python -m genpose_tpu_torch.runners.trainer --agent_type score --data_path <nocs> \
+        --is_train true
+    python -m genpose_tpu_torch.runners.trainer --agent_type energy_with_ranking \
+        --pretrained_score_model_path <ckpt> --sampler_mode ode_adaptive --data_path <nocs>
+    python -m genpose_tpu_torch.runners.trainer --eval true --model_name <epoch> ...
+    python -m genpose_tpu_torch.runners.trainer --results_path <results.pkl>
 
 - ``train_score``: score (or ranking-free energy) training with denoising
   score matching (reference ``trainer.py:266-322``), with an optional frozen
@@ -12,30 +22,67 @@
   learns DSM plus the ranking of those candidates (``trainer.py:325-388``);
   the encoder geometry of the batch is computed once, by the sampling, and
   shared with the energy step.
+- ``inference`` (``trainer.py:163-231``): the test set ``repeat_num`` times,
+  one sample per object, ``metrics.json`` + ``results.pkl``;
+  ``likelihood_eval``: PF-ODE bits of the GT poses, ``likelihood.json``;
+  ``evaluation`` (``trainer.py:234-263``): quaternion-averaged hypotheses
+  of a ``results.pkl`` against GT, ``average_results.pkl`` (never over the
+  input); ``prediction`` (``trainer.py:29-160``): K hypotheses ranked by
+  energy, averaged and best-energy poses, ``prediction_results.pkl``.
+- ``main``: the NOCS loaders (``data/loader.py``), the three agent types
+  (the energy warm start from score weights with re-zeroed heads,
+  ``--distillation``, ``energy_with_ranking``), resume under
+  ``--use_pretrain`` (the newest ``ckpt_epochN`` and ``clock.json``) and
+  the weight resolution of the eval flows (``_resolve_eval_weights``).
 
-A loader is any iterable of raw batches (dicts of numpy arrays as
-``data/synthetic.py::synthetic_batch`` makes them).  Checkpoints go to
-``<out_dir>/ckpts/<log_dir>``, metrics to ``<out_dir>/logs/<log_dir>/metrics.jsonl``.
-Randomness comes from a ``torch.Generator`` on the agent's device seeded
-with ``cfg.seed`` (``cfg.seed + 1`` for ``train_energy``, as in JAX).  The
-CLI ``main()`` with the NOCS loaders, the eval visualisation and
-multi-card training are not ported yet.
+A loader is any iterable of raw batches (dicts of numpy arrays, as
+``data/loader.py`` and ``data/synthetic.py::synthetic_batch`` make them).
+Checkpoints go to ``<out_dir>/ckpts/<log_dir>``, metrics to
+``<out_dir>/logs/<log_dir>/metrics.jsonl``, inference results to
+``<out_dir>/inference_results/<log_dir>`` and predictions to
+``<out_dir>/predictions/<log_dir>`` (``out_dir`` is ``results``, as in JAX).
+Randomness comes from one ``torch.Generator`` per flow on the agent's
+device, seeded as the JAX keys are: ``cfg.seed`` (``train_score``),
+``+ 1`` (``train_energy``), ``+ 2`` (``inference``), ``+ 3``
+(``prediction``; the likelihood's exact divergence draws nothing).
+
+Not ported, and refused by ``main`` before any work: ``--save_video`` (the
+diffusion videos of the eval epoch) and ``num_devices > 1``.  The eval
+epoch's pose renders (TensorBoard images) and ``prediction``'s SO(3) and
+grid images are not drawn; as the JAX runner does when its drawing
+libraries are missing, a line says so and the flow goes on.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import pickle
+import sys
 import time
 from typing import Iterable, Optional
 
 import numpy as np
 import torch
 
-from genpose_tpu_torch.config import Config
+from genpose_tpu_torch.config import Config, get_config
+from genpose_tpu_torch.data.loader import get_data_loaders_from_cfg
 from genpose_tpu_torch.data.process import process_batch
 from genpose_tpu_torch.eval.metrics import get_metrics
+from genpose_tpu_torch.ops.pose import (
+    average_quaternion_batch,
+    get_rot_matrix,
+    matrix_to_quat_wxyz,
+)
 from genpose_tpu_torch.training.agent import PoseAgent
-from genpose_tpu_torch.training.checkpoints import save_checkpoint
+from genpose_tpu_torch.training.checkpoints import (
+    latest_checkpoint,
+    load_checkpoint,
+    load_clock,
+    save_checkpoint,
+)
+from genpose_tpu_torch.training.ranking import sort_poses_by_energy
+from genpose_tpu_torch.utils.device import runner_device
 from genpose_tpu_torch.utils.logging import MetricsLogger, TrainClock
 
 NUM_CANDIDATES = 5  # score-model candidates per object for the ranking loss (trainer.py:196)
@@ -51,6 +98,13 @@ def _generator(agent: PoseAgent, seed: int) -> torch.Generator:
     return torch.Generator(device=agent.device).manual_seed(seed)
 
 
+def _batch_errors(cfg: Config, pose: torch.Tensor, gt: torch.Tensor, batch, pose_mode: str):
+    """(rotation error [bs] in degrees, translation error [bs] in cm)."""
+    return get_metrics(pose.cpu().numpy(), gt.cpu().numpy(), batch["id"].cpu().numpy(),
+                       cfg.synset_names, batch["handle_visibility"].cpu().numpy(), pose_mode,
+                       cfg.o2c_pose)
+
+
 def _eval_epoch(cfg: Config, agent: PoseAgent, loaders, logger: MetricsLogger,
                 epoch: int, generator: torch.Generator) -> None:
     """One sampled pose per object of the first batch of each loader, and
@@ -63,10 +117,8 @@ def _eval_epoch(cfg: Config, agent: PoseAgent, loaders, logger: MetricsLogger,
                               device=agent.device)
         pred = agent.sample(batch, generator=generator, repeat_num=1,
                             num_steps=cfg.sampling_steps)
-        rot_err, trans_err = get_metrics(
-            pred[:, 0].cpu().numpy(), batch["gt_pose"].cpu().numpy(),
-            batch["id"].cpu().numpy(), cfg.synset_names,
-            batch["handle_visibility"].cpu().numpy(), cfg.pose_mode, cfg.o2c_pose)
+        rot_err, trans_err = _batch_errors(cfg, pred[:, 0], batch["gt_pose"], batch,
+                                           cfg.pose_mode)
         logger.scalar(f"{mode}/ode_mean_rot_error", float(np.mean(rot_err)), epoch)
         logger.scalar(f"{mode}/ode_mean_trans_error", float(np.mean(trans_err)), epoch)
 
@@ -148,3 +200,297 @@ def train_energy(cfg: Config, train_loader: Iterable, val_loader: Iterable,
     finally:
         logger.close()
     return clock
+
+
+def inference(cfg: Config, test_loader: Iterable, agent: PoseAgent,
+              out_dir: str = "results") -> str:
+    """The test set ``repeat_num`` times, one sampled pose per object and
+    batches ``0..max_eval_num`` (``>``, as the reference's ``trainer.py:38``):
+    ``metrics.json`` (each repeat's errors) and ``results.pkl`` (the
+    ``repeat_num`` poses per object, GT, class and handle visibility) under
+    ``<out_dir>/inference_results/<log_dir>/<test_source>_<sampler>_<steps>``.
+    Returns the path of ``results.pkl``."""
+    gen = _generator(agent, cfg.seed + 2)
+    metrics, results = {}, {}
+    for i in range(cfg.repeat_num):
+        errs, preds, gts, ids, hvs = [], [], [], [], []
+        for index, raw in enumerate(test_loader):
+            if index > cfg.max_eval_num:
+                break
+            batch = process_batch(raw, cfg.pose_mode, device=agent.device)
+            pred = agent.sample(batch, generator=gen, repeat_num=1,
+                                num_steps=cfg.sampling_steps)[:, 0]
+            errs.append(np.stack(_batch_errors(cfg, pred, batch["gt_pose"], batch,
+                                               cfg.pose_mode), axis=1))
+            preds.append(pred.cpu().numpy())
+            gts.append(batch["gt_pose"].cpu().numpy())
+            ids.append(batch["id"].cpu().numpy())
+            hvs.append(batch["handle_visibility"].cpu().numpy())
+        err = np.concatenate(errs)
+        print(f"[{i + 1}/{cfg.repeat_num}] MEAN ROT {err[:, 0].mean():.2f} deg  "
+              f"MEAN TRANS {err[:, 1].mean():.2f} cm  MEDIAN ROT {np.median(err[:, 0]):.2f}")
+        metrics[f"index_{i}"] = err.tolist()
+        pred_cat = np.concatenate(preds)[:, None]
+        if i == 0:
+            results = {"pred_pose": pred_cat, "gt_pose": np.concatenate(gts),
+                       "cls_id": np.concatenate(ids), "handle_visibility": np.concatenate(hvs)}
+        else:
+            results["pred_pose"] = np.concatenate([results["pred_pose"], pred_cat], axis=1)
+
+    sampler = cfg.sampler_mode[0] if cfg.sampler_mode else "ode"
+    save_path = os.path.join(out_dir, "inference_results", cfg.log_dir,
+                             f"{cfg.test_source}_{sampler}_{cfg.sampling_steps}")
+    os.makedirs(save_path, exist_ok=True)
+    with open(os.path.join(save_path, "metrics.json"), "w") as f:
+        json.dump(metrics, f, indent=1)
+    results_path = os.path.join(save_path, "results.pkl")
+    with open(results_path, "wb") as f:
+        pickle.dump(results, f)
+    return results_path
+
+
+def likelihood_eval(cfg: Config, test_loader: Iterable, agent: PoseAgent,
+                    out_dir: str = "results") -> dict:
+    """PF-ODE log-likelihood of the GT poses over the test batches
+    ``0..max_eval_num`` (the reference's 'likelihood' forward mode,
+    ``posenet.py:166-168``): mean, median and per-class mean bits in
+    ``<out_dir>/inference_results/<log_dir>/<test_source>_likelihood/likelihood.json``."""
+    all_bits, all_ids = [], []
+    for index, raw in enumerate(test_loader):
+        if index > cfg.max_eval_num:
+            break
+        batch = process_batch(raw, cfg.pose_mode, device=agent.device)
+        _, bits = agent.likelihood(batch, batch["zero_mean_gt_pose"],
+                                   num_steps=cfg.sampling_steps)
+        all_bits.append(bits.cpu().numpy())
+        all_ids.append(batch["id"].cpu().numpy())
+    bits, ids = np.concatenate(all_bits), np.concatenate(all_ids)
+    summary = {"mean_bits": float(bits.mean()), "median_bits": float(np.median(bits)),
+               "n": int(bits.shape[0])}
+    for cls_id in np.unique(ids):
+        name = (cfg.synset_names[int(cls_id)] if int(cls_id) < len(cfg.synset_names)
+                else str(int(cls_id)))
+        summary[f"mean_bits/{name}"] = float(bits[ids == cls_id].mean())
+    save_path = os.path.join(out_dir, "inference_results", cfg.log_dir,
+                             f"{cfg.test_source}_likelihood")
+    os.makedirs(save_path, exist_ok=True)
+    with open(os.path.join(save_path, "likelihood.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    print(f"LIKELIHOOD mean {summary['mean_bits']:.3f} bits "
+          f"(median {summary['median_bits']:.3f}, n={summary['n']})")
+    return summary
+
+
+def _quat_pose(pose: torch.Tensor, pose_mode: str) -> torch.Tensor:
+    """[..., pose_dim] in ``pose_mode`` -> [..., 7] wxyz quaternion + t."""
+    rot = get_rot_matrix(pose.reshape(-1, pose.shape[-1])[:, :-3], pose_mode)
+    quat = matrix_to_quat_wxyz(rot).reshape(pose.shape[:-1] + (4,))
+    return torch.cat([quat, pose[..., -3:]], dim=-1)
+
+
+def evaluation(cfg: Config, device="cpu") -> np.ndarray:
+    """Errors of a ``results.pkl``'s quaternion-averaged hypotheses against
+    GT (ref ``trainer.py:234-263``): [N, 2] (degrees, cm), written to
+    ``average_results.pkl`` beside it, or ``<input>.average_results.pkl``
+    when the input's name does not hold ``results.pkl`` (never over the
+    input)."""
+    with open(cfg.results_path, "rb") as f:
+        results = pickle.load(f)
+    pred = torch.as_tensor(np.asarray(results["pred_pose"], np.float32), device=device)
+    avg_q = average_quaternion_batch(_quat_pose(pred, cfg.pose_mode)[..., :4])
+    avg_pose = torch.cat([avg_q, torch.mean(pred[..., -3:], dim=1)], dim=-1)
+    gt = torch.as_tensor(np.asarray(results["gt_pose"], np.float32), device=device)
+    rot_error, trans_error = get_metrics(
+        avg_pose.cpu().numpy(), _quat_pose(gt, cfg.pose_mode).cpu().numpy(),
+        np.asarray(results["cls_id"]), cfg.synset_names,
+        np.asarray(results["handle_visibility"]), "quat_wxyz", cfg.o2c_pose)
+    error = np.stack([rot_error, trans_error], axis=1)
+    out = cfg.results_path.replace("results.pkl", "average_results.pkl")
+    if out == cfg.results_path:
+        out = cfg.results_path + ".average_results.pkl"
+    with open(out, "wb") as f:
+        pickle.dump(error, f)
+    print("Mean Rotation Error: ", rot_error.mean())
+    print("Median Rotation Error: ", np.median(rot_error))
+    print("Mean Translation Error: ", trans_error.mean())
+    print("Median Translation Error: ", np.median(trans_error))
+    return error
+
+
+def prediction(cfg: Config, test_loader: Iterable, agent: PoseAgent,
+               energy_agent: Optional[PoseAgent] = None, out_dir: str = "results") -> list:
+    """``repeat_num`` hypotheses per object of the test batches
+    ``0..max_eval_num``, ranked by ``energy_agent`` (by ``agent`` when it is
+    an energy agent; a score-only run takes the first hypothesis), the
+    quaternion-averaged and the best-energy pose with their errors:
+    ``<out_dir>/predictions/<log_dir>/prediction_results.pkl`` (ref
+    ``trainer.py:29-160``).  The SO(3) and grid images are not drawn."""
+    e_agent = energy_agent or agent
+    gen = _generator(agent, cfg.seed + 3)
+    save_dir = os.path.join(out_dir, "predictions", cfg.log_dir)
+    os.makedirs(save_dir, exist_ok=True)
+    all_res = []
+    for index, raw in enumerate(test_loader):
+        if index > cfg.max_eval_num:
+            break
+        batch = process_batch(raw, cfg.pose_mode, device=agent.device)
+        pred = agent.sample(batch, generator=gen, repeat_num=cfg.repeat_num,
+                            num_steps=cfg.sampling_steps)  # [bs, K, pose_dim]
+        if e_agent.mode == "energy":
+            energy = e_agent.get_energy(batch, pred, T=1e-5)
+            chosen = sort_poses_by_energy(pred, energy)[0][:, 0]
+        else:
+            energy = torch.zeros(pred.shape[:2] + (2,), device=pred.device)
+            chosen = pred[:, 0]
+        pred_q, avg = agent.aggregate_hypotheses(pred)
+        gt_q = _quat_pose(batch["gt_pose"], cfg.pose_mode)
+        chosen_q = _quat_pose(chosen, cfg.pose_mode)
+        for name, pose in (("average", avg), ("best_energy", chosen_q)):
+            err = np.stack(_batch_errors(cfg, pose, gt_q, batch, "quat_wxyz"), axis=1)
+            print(f"[batch {index}] {name}: mean error {err.mean(0)}  "
+                  f"median error {np.median(err, 0)}")
+        all_res.append({"pred_pose": pred_q.cpu().numpy(), "average_pred_pose": avg.cpu().numpy(),
+                        "choosed_pred_pose": chosen_q.cpu().numpy(),
+                        "gt_pose": gt_q.cpu().numpy(), "energy": energy.cpu().numpy(),
+                        "pts": batch["pts"].cpu().numpy()})
+    print("visualization skipped: the SO(3) and grid images are not ported")
+    with open(os.path.join(save_dir, "prediction_results.pkl"), "wb") as f:
+        pickle.dump(all_res, f)
+    print(f"prediction artifacts -> {save_dir}")
+    return all_res
+
+
+def _load_pretrained(agent: PoseAgent, path: str, load_model_only: bool = True) -> None:
+    load_checkpoint(path, agent, load_model_only)
+
+
+def _resolve_eval_weights(cfg: Config, agent: PoseAgent, ckpt_dir: str) -> None:
+    """Weights for the ``--eval`` / ``--pred`` / ``--likelihood`` flows, first
+    found: the path flag of the agent's mode (``--pretrained_energy_model_path``
+    or ``--pretrained_score_model_path``), ``ckpt_epoch<--model_name>`` in
+    ``ckpt_dir`` (a missing one raises), the state a ``--use_pretrain``
+    resume restored, the newest checkpoint in ``ckpt_dir``; else a warning
+    that the seeded initial weights are evaluated."""
+    explicit = None
+    if agent.mode == "energy" and cfg.pretrained_energy_model_path:
+        explicit = cfg.pretrained_energy_model_path
+    elif agent.mode == "score" and cfg.pretrained_score_model_path:
+        explicit = cfg.pretrained_score_model_path
+    if explicit:
+        _load_pretrained(agent, explicit)
+        return
+    if cfg.model_name:
+        path = os.path.join(ckpt_dir, f"ckpt_epoch{cfg.model_name}")
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"--model_name {cfg.model_name}: no checkpoint at {path}")
+        _load_pretrained(agent, path)
+        return
+    if cfg.use_pretrain:
+        return  # the resume restored the newest state
+    path = latest_checkpoint(ckpt_dir)
+    if path:
+        _load_pretrained(agent, path)
+        return
+    print(f"WARNING: no checkpoint to evaluate (no weight flags and none under {ckpt_dir}) "
+          "- running with the seeded initial weights")
+
+
+def refuse_unported(cfg: Config) -> None:
+    """Raise for what the port's CLI does not do, before any work."""
+    if cfg.save_video:
+        raise NotImplementedError(
+            "--save_video (the eval epoch's diffusion videos) is not ported")
+    if cfg.num_devices > 1:
+        raise NotImplementedError(
+            f"--num_devices {cfg.num_devices}: training on several cards is not ported")
+
+
+def main(argv=None, out_dir: str = "results"):
+    cfg = get_config(argv if argv is not None else sys.argv[1:])
+    refuse_unported(cfg)
+    device = runner_device(cfg)
+    if cfg.results_path:
+        print("Start evaluate ...")
+        evaluation(cfg, device)
+        print("Evaluate finished!")
+        return
+    if not (cfg.eval or cfg.pred or cfg.likelihood):
+        loaders = get_data_loaders_from_cfg(cfg, ["train", "val", "test"])
+        steps_per_epoch = max(1, len(loaders["train_loader"]))
+    else:
+        loaders = get_data_loaders_from_cfg(cfg, ["test"])
+        steps_per_epoch = 1000
+    try:
+        _run_flows(cfg, device, loaders, steps_per_epoch, out_dir)
+    finally:
+        for ld in loaders.values():  # the process pools of loader_mode='process'
+            ld.close()
+
+
+def _run_flows(cfg: Config, device, loaders, steps_per_epoch: int, out_dir: str) -> None:
+    def agent(mode):
+        return PoseAgent(cfg, mode, device=device, steps_per_epoch=steps_per_epoch)
+
+    if cfg.agent_type == "score":
+        tr_agent = score_agent = agent("score")
+    elif cfg.agent_type == "energy":
+        tr_agent, score_agent = agent("energy"), None
+        if cfg.pretrained_score_model_path:
+            # warm-start the energy net from the score net, its output layers
+            # re-zeroed (ref trainer.py:425-426)
+            _load_pretrained(tr_agent, cfg.pretrained_score_model_path)
+            tr_agent.zero_head_outputs()
+        if cfg.distillation:
+            if not cfg.pretrained_score_model_path:
+                raise ValueError("--distillation requires --pretrained_score_model_path")
+            score_agent = agent("score")
+            _load_pretrained(score_agent, cfg.pretrained_score_model_path)
+    elif cfg.agent_type == "energy_with_ranking":
+        if not cfg.pretrained_score_model_path:
+            raise ValueError("energy_with_ranking requires --pretrained_score_model_path")
+        score_agent, tr_agent = agent("score"), agent("energy")
+        _load_pretrained(score_agent, cfg.pretrained_score_model_path)
+        if cfg.pretrained_energy_model_path:
+            _load_pretrained(tr_agent, cfg.pretrained_energy_model_path)
+    else:
+        raise NotImplementedError(cfg.agent_type)
+
+    ckpt_dir, _ = results_dirs(cfg, out_dir)
+    if cfg.use_pretrain:
+        path = latest_checkpoint(ckpt_dir)
+        if path:
+            load_checkpoint(path, tr_agent, load_model_only=False)
+            tr_agent.clock = TrainClock.restored(load_clock(ckpt_dir))
+
+    test_loader = loaders["test_loader"]
+    if cfg.eval or cfg.likelihood or cfg.pred:
+        _resolve_eval_weights(cfg, tr_agent, ckpt_dir)
+    if cfg.eval:
+        print("Start inference ...")
+        inference(cfg, test_loader, tr_agent, out_dir)
+        print("Inference finished")
+        return
+    if cfg.likelihood:
+        print("Start likelihood evaluation ...")
+        likelihood_eval(cfg, test_loader, tr_agent, out_dir)
+        print("Likelihood evaluation finished")
+        return
+    if cfg.pred:
+        print("Start prediction ...")
+        energy_agent = tr_agent if cfg.agent_type != "score" else None
+        score = score_agent if cfg.agent_type != "energy" else tr_agent
+        prediction(cfg, test_loader, score, energy_agent, out_dir)
+        print("Prediction finished")
+        return
+
+    train_loader, val_loader = loaders["train_loader"], loaders["val_loader"]
+    print("eval visualization skipped: the eval epoch's pose renders are not ported")
+    if cfg.agent_type == "score":
+        train_score(cfg, train_loader, val_loader, tr_agent, out_dir=out_dir)
+    else:
+        train_energy(cfg, train_loader, val_loader, tr_agent, score_agent,
+                     ranking=cfg.agent_type == "energy_with_ranking", out_dir=out_dir)
+
+
+if __name__ == "__main__":
+    main()

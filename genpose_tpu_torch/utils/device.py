@@ -18,3 +18,10 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def runner_device(cfg) -> torch.device:
+    """The device a runner's ``main`` uses: ``cfg.device`` when it names the
+    CPU or a card, else the card (the config's default ``tpu`` included)."""
+    name = cfg.device
+    return resolve_device(name if name == "cpu" or name.startswith("cuda") else "cuda")

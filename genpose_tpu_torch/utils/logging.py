@@ -11,7 +11,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 
 class TrainClock:
@@ -37,6 +37,16 @@ class TrainClock:
         self.epoch = clock_dict["epoch"]
         self.minibatch = clock_dict["minibatch"]
         self.step = clock_dict["step"]
+
+    @classmethod
+    def restored(cls, clock_dict: Optional[dict]) -> "TrainClock":
+        """A new clock at ``clock_dict`` (a ``clock.json``, as
+        ``training/checkpoints.py::load_clock`` reads it), or at its start
+        when there is none."""
+        clock = cls()
+        if clock_dict:
+            clock.restore_checkpoint(clock_dict)
+        return clock
 
 
 class MetricsLogger:

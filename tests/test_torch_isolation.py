@@ -51,7 +51,9 @@ def test_scan_sees_the_whole_port():
                  "genpose_tpu_torch/eval/nocs_eval.py", "genpose_tpu_torch/data/dataset_utils.py",
                  "genpose_tpu_torch/utils/png.py", "genpose_tpu_torch/utils/tracking.py",
                  "genpose_tpu_torch/utils/torch_port.py",
-                 "genpose_tpu_torch/tools/port_torch_ckpt.py"):
+                 "genpose_tpu_torch/tools/port_torch_ckpt.py",
+                 "genpose_tpu_torch/data/nocs.py", "genpose_tpu_torch/data/loader.py",
+                 "genpose_tpu_torch/runners/trainer.py"):
         assert must in names
 
 
@@ -116,13 +118,16 @@ def test_unknown_flag_is_an_error():
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     from genpose_tpu_torch.models.posenet import build_model
+    from genpose_tpu_torch.runners import trainer
     from genpose_tpu_torch.runners.serving import InferencePipeline
     from genpose_tpu_torch.training.agent import PoseAgent
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = torch_config.Config(num_points=32)
     for make in (lambda: InferencePipeline(cfg), lambda: PoseAgent(cfg),
-                 lambda: build_model(cfg), lambda: PoseAgent(cfg, device="cuda:0")):
+                 lambda: build_model(cfg), lambda: PoseAgent(cfg, device="cuda:0"),
+                 lambda: trainer.main(["--agent_type", "score", "--data_path", "unread"]),
+                 lambda: trainer.main(["--results_path", "unread.pkl", "--device", "cuda"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     model = build_model(cfg, "score", device="cpu")
