@@ -131,20 +131,35 @@ non-zero and prints no result line):
    for batches, the device busy share; ``energy_with_ranking`` from the
    score checkpoint (K=5 candidates by ``ode_adaptive``, one epoch, the
    process loader); and
-   on Real/test ``--eval`` (repeat 20), ``--results_path``,
+   on Real/test ``--eval`` (repeat CLI_EVAL_REPEAT), ``--results_path``,
    ``--pred`` and ``--likelihood`` (CLI_LIKELIHOOD_STEPS steps) with
    ``--max_eval_num 0``.  Checks: finite logged losses, every artifact of
    each flow, FPS 3 + ball query 3 in every score step, energy iteration,
    eval-epoch and inference sampling, energy and likelihood call, and no
-   launch outside them.
+   launch outside them;
+16. every other encoder, PointNet++ stage config and pose mode of the JAX
+   config (NEW_CONFIGS: ``pts_encoder`` ``pointnet`` and
+   ``pointnet_and_pointnet2``, ``pointnet2_params`` ``full``, ``lighter``
+   and ``dense``, ``pose_mode`` ``euler_xyz_sx_cx`` with ``R_and_T``):
+   FPS and ball query against their plain versions, bit for bit, at every
+   stage of the full, lighter and dense chains (``Pointnet2MSG``'s is
+   full's first four stages), on object clouds and on clouds tiled from
+   200 points (exact duplicates), each shape that phase 3 does not run
+   timed with its bound; ``Pointnet2MSG`` once on the card (4 + 4
+   launches) against the CPU; per configuration a full-width Heun-500
+   request eagerly and then frozen (bit for bit, 2 frozen dispatches, the
+   frozen request profiled; FPS and ball query 0, 3 or 4 times a request
+   as the encoder has stages) and the phase-5 check against the CPU; and
+   NEW_TRAIN_STEPS score steps at bs=192 for ``pointnet_and_pointnet2``
+   and ``full`` (seconds per step beside phase 7's, peak memory, launches).
 
 Checkpoints and metrics of phase 7, the trees and results of phases 9-12,
 the converted checkpoints of phase 14 and the tree and results of phase 15
 go under ``build/chip_smoke/`` in the checkout.  The last lines are the
 training numbers, the evaluation and tracking numbers, the frozen arms, the
 bfloat16 arms, the checkpoint and sampler numbers, the training CLI's
-numbers, the card line, one JSON line describing each kernel, and
-``{"ok": true, "device": {...}}``.
+numbers, phase 16's numbers, the card line, one JSON line describing each
+kernel, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -236,32 +251,53 @@ def upstream_state_dict(params, batch_stats, regression_head: str = "Rx_Ry_and_T
     come in the flax layout (nested dicts of arrays: the JAX package's
     params and batch_stats, or ``utils/weights.py::to_jax_variables`` of a
     port model).  The inverse of ``utils/torch_port.py::port_gf_state_dict``:
-    1x1-conv weights [out, in, 1, 1] and Linear weights [out, in], each tail
-    one Linear over [pts_feat, t-or-sigma feat, pose_feat], BatchNorm as
-    ``weight/bias/running_mean/running_var/num_batches_tracked``."""
+    1x1-conv weights [out, in, 1, 1] (PointNet++) or [out, in, 1] (PointNet,
+    the per-point heads) and Linear weights [out, in], each fusion tail one
+    Linear over [pts_feat, t-or-sigma feat, pose_feat], BatchNorm as
+    ``weight/bias/running_mean/running_var/num_batches_tracked``.  The
+    encoder is read from the tree's names: ``encoder`` (PointNet++ or
+    PointNet), or ``encoder_pn`` + ``encoder_pn2`` + ``fusion_layer``; a
+    tail holding ``bias1`` is a per-point head."""
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
     sd = {}
 
-    def linear(key, dense):
-        sd[f"{key}.weight"] = t(np.asarray(dense["kernel"]).T)
+    def linear(key, dense, conv_dims=0):
+        sd[f"{key}.weight"] = t(np.asarray(dense["kernel"]).T)[(...,) + (None,) * conv_dims]
         if "bias" in dense:
             sd[f"{key}.bias"] = t(dense["bias"])
 
-    for sa, sa_p in params["encoder"].items():
-        for mlp, mlp_p in sa_p.items():
-            base = f"pts_encoder.SA_modules.{sa[3:]}.mlps.{mlp[4:]}"
-            for name, leaf in mlp_p.items():
-                j = name.split("_")[1]
-                if name.startswith("dense"):
-                    sd[f"{base}.layer{j}.conv.weight"] = t(np.asarray(leaf["kernel"]).T)[..., None, None]
-                else:
-                    bn, stats = f"{base}.layer{j}.bn.bn", batch_stats["encoder"][sa][mlp][name]
-                    sd[f"{bn}.weight"], sd[f"{bn}.bias"] = t(leaf["scale"]), t(leaf["bias"])
-                    sd[f"{bn}.running_mean"], sd[f"{bn}.running_var"] = (t(stats["mean"]),
-                                                                         t(stats["var"]))
-                    sd[f"{bn}.num_batches_tracked"] = torch.tensor(0)
+    def batch_norm(key, scale_bias, stats):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = t(scale_bias["scale"]), t(scale_bias["bias"])
+        sd[f"{key}.running_mean"], sd[f"{key}.running_var"] = t(stats["mean"]), t(stats["var"])
+        sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+    def pointnet2(prefix, enc, enc_stats):
+        for sa, sa_p in enc.items():
+            for mlp, mlp_p in sa_p.items():
+                base = f"{prefix}SA_modules.{sa[3:]}.mlps.{mlp[4:]}"
+                for name, leaf in mlp_p.items():
+                    j = name.split("_")[1]
+                    if name.startswith("dense"):
+                        linear(f"{base}.layer{j}.conv", leaf, conv_dims=2)
+                    else:
+                        batch_norm(f"{base}.layer{j}.bn.bn", leaf, enc_stats[sa][mlp][name])
+
+    def pointnet(prefix, enc):
+        for i, src in enumerate(("conv1", "conv2", "conv3", "fc1", "fc2", "fc3")):
+            linear(f"{prefix}stn.{src}", enc["stn"][f"Dense_{i}"], conv_dims=int(i < 3))
+        for i in range(4):
+            linear(f"{prefix}conv{i + 1}", enc[f"Dense_{i}"], conv_dims=1)
+
+    if "encoder_pn" in params:
+        pointnet("pts_pointnet_encoder.", params["encoder_pn"])
+        pointnet2("pts_pointnet2_encoder.", params["encoder_pn2"], batch_stats["encoder_pn2"])
+        linear("fusion_layer", params["fusion_layer"])
+    elif "stn" in params["encoder"]:
+        pointnet("pts_encoder.", params["encoder"])
+    else:
+        pointnet2("pts_encoder.", params["encoder"], batch_stats["encoder"])
     head = params["head"] if decoder_head else params["head"]["trunk"]
     pre = "pose_score_net."
     if decoder_head:
@@ -281,6 +317,15 @@ def upstream_state_dict(params, batch_stats, regression_head: str = "Rx_Ry_and_T
                                  bank["pose_kernel"][:, cols]], axis=0)
             linear(f"{tail}.0", {"kernel": w1, "bias": bank["bias"][cols]})
             linear(f"{tail}.2", {"kernel": bank["out_kernel"][k], "bias": bank["out_bias"][k]})
+        elif "bias1" in head[name]:  # a per-point RotHead / TransHead
+            pp, pp_stats = head[name], batch_stats["head"]["trunk"][name]
+            w1 = np.concatenate([np.asarray(pp[n]) for n in ("feat_kernel", "t_kernel",
+                                                              "pose_kernel")], axis=0)
+            linear(f"{tail}.conv1", {"kernel": w1, "bias": pp["bias1"]}, conv_dims=1)
+            for j in (1, 2, 3):
+                batch_norm(f"{tail}.bn{j}", pp[f"bn{j}"], pp_stats[f"bn{j}"])
+            for j in (2, 3, 4):
+                linear(f"{tail}.conv{j}", pp[f"conv{j}"], conv_dims=1)
         else:
             split = head[name]
             w1 = np.concatenate([np.asarray(split["feat"]["kernel"]),
@@ -538,6 +583,16 @@ def make_pipeline(dev, **overrides):
     return pipe
 
 
+def geometry_stages(cfg) -> int:
+    """FPS (and ball-query) launches in one geometry pass of ``cfg``'s
+    encoder: one per SA stage with centres, none for plain PointNet."""
+    from genpose_tpu_torch.models.pointnet2 import CLS_MSG_CONFIGS
+
+    if cfg.pts_encoder == "pointnet":
+        return 0
+    return sum(m is not None for m in CLS_MSG_CONFIGS[cfg.pointnet2_params]["NPOINTS"])
+
+
 def drive(pipe, pts: np.ndarray, label: str):
     """Phase 4: one request through the pipeline with the counters read around it."""
     from genpose_tpu_torch.ops import ball_query_cuda, fps_cuda
@@ -551,12 +606,14 @@ def drive(pipe, pts: np.ndarray, label: str):
     out = pipe.predict(pts, generator=gen)  # ends in host copies: synchronised
     seconds = time.perf_counter() - t0
     launches = {"fps": fps_cuda.launches, "ball_query": ball_query_cuda.launches}
-    if launches != {"fps": 3 * chunks, "ball_query": 3 * chunks}:
+    per = geometry_stages(pipe.cfg) * chunks
+    if launches != {"fps": per, "ball_query": per}:
         raise AssertionError(f"{label}: main path launches {launches}, expected "
-                             f"{3 * chunks} FPS and {3 * chunks} ball query")
+                             f"{per} FPS and {per} ball query")
     n = pts.shape[0]
     want_shapes = {"pred_pose": (n, 7), "best_pose": (n, 7),
-                   "sorted_hypotheses": (n, pipe.K, 9), "energy": (n, pipe.K, 2)}
+                   "sorted_hypotheses": (n, pipe.K, pipe.score_agent.pose_dim),
+                   "energy": (n, pipe.K, 2)}
     for k, shape in want_shapes.items():
         if out[k].shape != shape or not np.isfinite(out[k]).all():
             raise AssertionError(f"{label}: {k} has shape {out[k].shape} or non-finite values")
@@ -607,8 +664,9 @@ def where_the_time_goes(pipe, pts: np.ndarray, label: str):
     return ours
 
 
-def cpu_gpu_agreement(dev):
-    """Phase 5: a small batch on the card and on the CPU, same weights and noise.
+def cpu_gpu_agreement(dev, label: str = "", **overrides):
+    """Phase 5: a small batch on the card and on the CPU, same weights and
+    noise (phase 16: under each new configuration's ``overrides``).
 
     Coordinates lie on a 2^-10 m grid, so the zero-centering mean (a sum of
     1024 grid values, divided by 1024) is exact in float32 on both devices
@@ -621,12 +679,13 @@ def cpu_gpu_agreement(dev):
 
     from genpose_tpu_torch.runners.serving import InferencePipeline
 
-    small = dict(batch_size=2, eval_repeat_num=4, sampling_steps=20)
+    small = dict(batch_size=2, eval_repeat_num=4, sampling_steps=20, **overrides)
     gpu = make_pipeline(dev, **small)
     cpu = InferencePipeline(gpu.cfg, device="cpu")
     cpu.score_agent.model.load_state_dict(gpu.score_agent.model.state_dict())
     cpu.energy_agent.model.load_state_dict(gpu.energy_agent.model.state_dict())
-    noise = torch.from_numpy(np.random.default_rng(3).normal(size=(8, 9)).astype(np.float32))
+    noise = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(8, gpu.score_agent.pose_dim)).astype(np.float32))
     sde = gpu.score_agent.sde
 
     def prior(shape, T=None, generator=None, device=None):
@@ -649,8 +708,8 @@ def cpu_gpu_agreement(dev):
         diff = float(np.max(np.abs(x - y) / (1.0 + np.abs(y))))
         worst = max(worst, diff)
         if diff > CPU_GPU_TOL:
-            raise AssertionError(f"CUDA vs CPU {k}: max scaled diff {diff} > {CPU_GPU_TOL}")
-    print(f"CUDA vs CPU (bs=2, K=4, 20 Heun steps): max |a-b|/(1+|b|) = {worst:.3e} "
+            raise AssertionError(f"CUDA vs CPU{label} {k}: max scaled diff {diff} > {CPU_GPU_TOL}")
+    print(f"CUDA vs CPU{label} (bs=2, K=4, 20 Heun steps): max |a-b|/(1+|b|) = {worst:.3e} "
           f"<= {CPU_GPU_TOL}", flush=True)
     return worst
 
@@ -2104,6 +2163,7 @@ def new_sampler_cpu_gpu_agreement(dev, card):
 # resampling gives 384 + 3 x 32 = 480 indices, two full batches of 192 an epoch
 CLI_CAMERA_SCENES, CLI_REAL_SCENES = 384, 32
 CLI_LIKELIHOOD_STEPS = 50  # phase 15's likelihood flow; 500 is the config default
+CLI_EVAL_REPEAT = 10  # phase 15's --eval flow; 20 (the config default) until phase 16 came
 
 
 @contextlib.contextmanager
@@ -2450,8 +2510,8 @@ def training_cli_path(dev, card, in_memory_step_s: float):
 
     # the inference flows on Real/test (one batch of CLI_REAL_SCENES objects)
     test = ["--max_eval_num", "0"] + common
-    flows = {"eval": run_cli(["--agent_type", "score", "--eval", "true", "--log_dir",
-                              "cli_score"] + test, out)}
+    flows = {"eval": run_cli(["--agent_type", "score", "--eval", "true", "--repeat_num",
+                              str(CLI_EVAL_REPEAT), "--log_dir", "cli_score"] + test, out)}
     res_dir = (Path(out) / "inference_results" / "cli_score"
                / f"{defaults.test_source}_{defaults.sampler_mode[0]}_{defaults.sampling_steps}")
     results_pkl = res_dir / "results.pkl"
@@ -2477,9 +2537,9 @@ def training_cli_path(dev, card, in_memory_step_s: float):
     n_obj = res["gt_pose"].shape[0]
     checks = {
         "metrics.json": (res_dir / "metrics.json").exists(),
-        "results.pkl": res["pred_pose"].shape == (n_obj, repeat, 9)
+        "results.pkl": res["pred_pose"].shape == (n_obj, CLI_EVAL_REPEAT, 9)
         and np.isfinite(res["pred_pose"]).all() and n_obj == CLI_REAL_SCENES,
-        "eval samplings": len(flows["eval"]["calls"]["sample"]) == repeat,
+        "eval samplings": len(flows["eval"]["calls"]["sample"]) == CLI_EVAL_REPEAT,
         "prediction_results.pkl": len(pred) == 1
         and pred[0]["pred_pose"].shape == (n_obj, repeat, 7)
         and np.isfinite(pred[0]["energy"]).all() and np.isfinite(pred[0]["average_pred_pose"]).all(),
@@ -2496,12 +2556,248 @@ def training_cli_path(dev, card, in_memory_step_s: float):
                        "launches": flows["likelihood"]["launches"],
                        "mean_bits": lik["mean_bits"]}}
     print(f"training CLI flows on Real/test ({n_obj} objects, one batch): --eval (repeat "
-          f"{repeat}, Heun-{defaults.sampling_steps}) {flows['eval']['wall_s']:.3f} s, launches {flows['eval']['launches']}; "
+          f"{CLI_EVAL_REPEAT}, Heun-{defaults.sampling_steps}) {flows['eval']['wall_s']:.3f} s, launches {flows['eval']['launches']}; "
           f"--results_path {flows['results_path_s']:.3f} s; --pred (K={repeat}, energy ranking) "
           f"{flows['pred']['wall_s']:.3f} s, launches {flows['pred']['launches']}; --likelihood "
           f"({CLI_LIKELIHOOD_STEPS} steps) {flows['likelihood']['wall_s']:.3f} s, launches "
           f"{flows['likelihood']['launches']}; every artifact written; {card}", flush=True)
     return result
+
+
+# phase 16: every encoder, PointNet++ stage config and pose mode of the JAX
+# config beside the released model's (light PointNet++, rot_matrix), each
+# at the serving phase's full width
+NEW_CONFIGS = {
+    "pointnet": dict(pts_encoder="pointnet"),
+    "pointnet_and_pointnet2": dict(pts_encoder="pointnet_and_pointnet2"),
+    "full": dict(pointnet2_params="full"),
+    "lighter": dict(pointnet2_params="lighter"),
+    "dense": dict(pointnet2_params="dense"),
+    "euler_xyz_sx_cx": dict(pose_mode="euler_xyz_sx_cx", regression_head="R_and_T"),
+}
+NEW_TRAIN_CONFIGS, NEW_TRAIN_STEPS = ("pointnet_and_pointnet2", "full"), 3
+
+
+def new_config_kernels(dev):
+    """Phase 16 (1): FPS and ball query against their plain versions, bit
+    for bit, at every stage of the ``full``, ``lighter`` and ``dense`` chains
+    (``Pointnet2MSG``'s chain is ``full``'s first four stages) at B=64,
+    N=1024, on object clouds and on clouds tiled from 200 points (exact
+    duplicates); every shape that phase 3's ``light`` chain does not run is
+    timed as phase 3 times its shapes."""
+    from genpose_tpu_torch.models.pointnet2 import CLS_MSG_CONFIGS, MSG_CFG
+    from genpose_tpu_torch.ops import pointcloud as pc
+    from genpose_tpu_torch.ops.ball_query_cuda import ball_query_cuda
+    from genpose_tpu_torch.ops.fps_cuda import fps_cuda
+    from genpose_tpu_torch.tools.bench_fused_geometry import cuda_ms
+
+    full = CLS_MSG_CONFIGS["full"]
+    if any(MSG_CFG[k] != full[k][:4] for k in ("NPOINTS", "RADIUS", "NSAMPLE")):
+        raise AssertionError("Pointnet2MSG's stages are no longer full's first four")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    clouds = object_clouds(gen, B, N_POINTS, dev)
+    clouds = clouds - clouds.mean(dim=1, keepdim=True)
+    tiled = object_clouds(gen, B, 200, dev).repeat(1, 6, 1)[:, :N_POINTS].contiguous()
+    # the shapes phase 3 times; a new shape's row, by shape, lists its configs
+    seen = {(n, m) for n, m in FPS_SHAPES}
+    seen |= {(n, m, tuple(r), BQ_NSAMPLE) for (n, m), r in zip(FPS_SHAPES, BQ_RADII)}
+    rows, checked = {}, 0
+    for name in ("full", "lighter", "dense"):
+        cfg = CLS_MSG_CONFIGS[name]
+        for kind, xyz in (("object", clouds), ("tiled", tiled)):
+            for npoint, radii, nsamples in zip(cfg["NPOINTS"], cfg["RADIUS"], cfg["NSAMPLE"]):
+                if npoint is None:  # GroupAll: no kernel
+                    break
+                radii, nsamples, n = tuple(radii), tuple(nsamples), xyz.shape[1]
+                what = f"{name} {kind} B{B} N{n} M{npoint} r{radii} S{nsamples}"
+                idx = fps_cuda(xyz, npoint)
+                want = pc.farthest_point_sample_ref(xyz, npoint)
+                torch.cuda.synchronize()
+                if not torch.equal(idx, want):
+                    raise AssertionError(f"FPS kernel != plain: {what}")
+                centers = pc.gather_points(xyz, want)
+                got = ball_query_cuda(radii, nsamples, xyz, centers)
+                want_bq = pc.ball_query_msg_ref(radii, nsamples, xyz, centers)
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, w) for g, w in zip(got, want_bq)):
+                    raise AssertionError(f"ball-query kernel != plain: {what}")
+                checked += 2
+                fps_key, bq_key = (n, npoint), (n, npoint, radii, nsamples)
+                if kind == "object" and fps_key not in seen and fps_key not in rows:
+                    ms = cuda_ms(lambda: fps_cuda(xyz, npoint), 50)
+                    dev_ms = device_ms(lambda: fps_cuda(xyz, npoint), 20, "fps_kernel")
+                    plain = cuda_ms(lambda: pc.farthest_point_sample_ref(xyz, npoint), 3)
+                    rows[fps_key] = row(f"B{B} N{n} npoint{npoint}", ms, plain,
+                                        B * n * 12 + B * npoint * 4, B * (npoint - 1) * n * 10,
+                                        device_ms=dev_ms, us_per_round=per_round(dev_ms, npoint),
+                                        configs=[])
+                if kind == "object" and bq_key not in seen and bq_key not in rows:
+                    ms = cuda_ms(lambda: ball_query_cuda(radii, nsamples, xyz, centers), 50)
+                    dev_ms = device_ms(lambda: ball_query_cuda(radii, nsamples, xyz, centers),
+                                       20, "ball_query_kernel")
+                    plain = cuda_ms(lambda: pc.ball_query_msg_ref(radii, nsamples, xyz, centers),
+                                    5)
+                    later, per_radius, hits = examined_pairs(xyz, centers, radii, nsamples,
+                                                             want_bq)
+                    io = B * n * 12 + B * npoint * 12
+                    rows[bq_key] = row(f"B{B} N{n} M{npoint} r{radii} S{nsamples}", ms, plain,
+                                       io + B * npoint * sum(nsamples) * 4,
+                                       later * 8 + sum(per_radius), device_ms=dev_ms,
+                                       mean_hits=hits, configs=[])
+                for key in (fps_key, bq_key):
+                    if kind == "object" and key in rows and name not in rows[key]["configs"]:
+                        rows[key]["configs"].append(name)
+                xyz = centers
+    fps_rows = [r for k, r in rows.items() if len(k) == 2]
+    bq_rows = [r for k, r in rows.items() if len(k) == 4]
+    print(f"phase 16 kernels: FPS and ball query equal their plain versions at every stage of "
+          f"the full, lighter and dense chains (Pointnet2MSG's included), on object and tiled "
+          f"clouds ({checked} launches compared); new shapes timed: "
+          + "; ".join(f"FPS {r['shape']} {_ms(r['device_ms'])} (bound {r['bound_ms']:.4f})"
+                      for r in fps_rows)
+          + "; " + "; ".join(f"ball query {r['shape']} {_ms(r['device_ms'])} (bound "
+                             f"{r['bound_ms']:.4f}, {r['configs']})" for r in bq_rows)
+          + f"; {card_line()}", flush=True)
+    return fps_rows, bq_rows
+
+
+def msg_encoder_on_card(dev, card):
+    """Phase 16 (2): the SA + FP encoder ``Pointnet2MSG`` once on the card
+    (4 FPS + 4 ball-query launches) against the same weights on the CPU,
+    on grid clouds (phase 5) at N=1024: per-point features and logit within
+    CPU_GPU_TOL scaled; one forward timed at B=64."""
+    import copy
+
+    from genpose_tpu_torch.models.pointnet2 import Pointnet2MSG
+    from genpose_tpu_torch.ops import ball_query_cuda, fps_cuda
+    from genpose_tpu_torch.tools.bench_fused_geometry import cuda_ms
+    from genpose_tpu_torch.utils.weights import init_params_, perturb_
+
+    net = perturb_(init_params_(Pointnet2MSG(), seed=16), seed=17).eval()
+    cpu_net = copy.deepcopy(net)
+    net = net.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    pts = object_clouds(gen, 4, N_POINTS, dev, grid=2.0 ** -10)
+    torch.cuda.synchronize()
+    fps_cuda.launches = ball_query_cuda.launches = 0
+    with torch.no_grad():
+        feat, logit = net(pts)
+        torch.cuda.synchronize()
+        launches = {"fps": fps_cuda.launches, "ball_query": ball_query_cuda.launches}
+        want_feat, want_logit = cpu_net(pts.cpu())
+        big = object_clouds(gen, B, N_POINTS, dev)
+        ms = cuda_ms(lambda: net(big), 5)
+    if launches != {"fps": 4, "ball_query": 4}:
+        raise AssertionError(f"Pointnet2MSG launches {launches}, expected 4 and 4")
+    worst = max(_scaled_diff(feat.cpu().numpy(), want_feat.numpy()),
+                _scaled_diff(logit.cpu().numpy(), want_logit.numpy()))
+    if worst > CPU_GPU_TOL or feat.shape != (4, N_POINTS, 64) or logit.shape != (4, N_POINTS, 1):
+        raise AssertionError(f"Pointnet2MSG CUDA vs CPU {worst} (shapes {feat.shape}, "
+                             f"{logit.shape})")
+    print(f"Pointnet2MSG on the card (N={N_POINTS}): launches {launches}; CUDA vs CPU max "
+          f"|a-b|/(1+|b|) = {worst:.3e} <= {CPU_GPU_TOL}; one forward at B={B} {ms:.3f} ms "
+          f"(CUDA events); {card}", flush=True)
+    return {"launches": launches, "cpu_gpu": worst, "forward_ms_b64": ms}
+
+
+def new_config_serving(dev, card, pts: np.ndarray):
+    """Phase 16 (3): per new configuration, at full width, an eager Heun-500
+    request after a warm-up, then the same request frozen (bit for bit, 2
+    frozen dispatches a chunk) and profiled; then the phase-5 check on a
+    small grid request, CUDA against the CPU."""
+    from genpose_tpu_torch.training import frozen
+
+    result = {}
+    for name, kw in NEW_CONFIGS.items():
+        t0 = time.perf_counter()
+        pipe = make_pipeline(dev, sampler_mode=("ode",), **kw).warmup()
+        chunks = -(-pts.shape[0] // pipe.bs)
+        eager, eager_s, launches = drive(pipe, pts, f"{name} eager")
+        pipe.freeze().warmup()
+        frozen.dispatches = 0
+        got, frozen_s, frozen_launches = drive(pipe, pts, f"{name} frozen")
+        if frozen.dispatches != 2 * chunks:
+            raise AssertionError(f"{name} frozen: {frozen.dispatches} frozen dispatches, "
+                                 f"expected {2 * chunks}")
+        if not all(np.array_equal(got[k], eager[k]) for k in eager):
+            raise AssertionError(f"{name}: the frozen request differs from eager")
+        prof = device_profile(
+            lambda: pipe.predict(pts, generator=torch.Generator(device=dev).manual_seed(1)),
+            f"{name}, frozen request", cpu=False)
+        del pipe
+        torch.cuda.empty_cache()
+        worst = cpu_gpu_agreement(dev, f" {name}", **kw)
+        torch.cuda.empty_cache()
+        result[name] = {"eager_s": eager_s, "frozen_s": frozen_s,
+                        "eager_poses_per_s": B / eager_s, "frozen_poses_per_s": B / frozen_s,
+                        "frozen_profile": prof, "launches": launches,
+                        "frozen_launches": frozen_launches, "cpu_gpu": worst,
+                        "phase_s": time.perf_counter() - t0}
+        print(f"phase 16 serving {name} {kw} (bs={B}, K={K}, N={N_POINTS}, Heun-{HEUN_STEPS}): "
+              f"eager {eager_s:.4f} s = {B / eager_s:.2f} poses/s, frozen {frozen_s:.4f} s = "
+              f"{B / frozen_s:.2f} poses/s, frozen busy {prof['busy']} ({prof['device_ms']} "
+              f"device ms, {prof['kernels']} kernels); launches per request {launches}; frozen "
+              f"= eager bit for bit; CUDA vs CPU {worst:.3e}; {card}", flush=True)
+    return result
+
+
+def new_config_training(dev, card, light_step_s: float):
+    """Phase 16 (4): NEW_TRAIN_STEPS in-memory score steps at the released
+    recipe (bs=192, N=1024) per configuration of NEW_TRAIN_CONFIGS: seconds
+    per step (median after the first), peak memory, launches per step,
+    finite losses; beside phase 7's ``light`` step."""
+    from genpose_tpu_torch.config import Config
+    from genpose_tpu_torch.data.process import process_batch
+    from genpose_tpu_torch.training.agent import PoseAgent
+    from genpose_tpu_torch.utils.weights import perturb_
+
+    rng = np.random.default_rng(16)
+    result = {}
+    for name in NEW_TRAIN_CONFIGS:
+        cfg = Config(seed=0, **NEW_CONFIGS[name])
+        agent = PoseAgent(cfg, "score", device=dev)
+        perturb_(agent.model, seed=16)
+        raws = _raw_batches(rng, NEW_TRAIN_STEPS, cfg.batch_size, cfg.num_points)
+        gen = torch.Generator(device=dev).manual_seed(16)
+        meter = StepMeter(agent, "train_step")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        for raw in raws:
+            batch = process_batch(raw, cfg.pose_mode, gen, cfg.pts_aug, device=dev)
+            losses.append(float(agent.train_step(batch, gen)["gf"]))
+        meter.close()
+        peak = torch.cuda.max_memory_allocated()
+        per = geometry_stages(cfg)
+        for n, call in enumerate(meter.calls):
+            if (call["fps"], call["ball_query"]) != (per, per) or not np.isfinite(losses[n]):
+                raise AssertionError(f"{name} score step {n}: {call}, loss {losses[n]}")
+        s_step = float(np.median([c["s"] for c in meter.calls[1:]]))
+        result[name] = {"s_per_step": s_step, "samples_per_s": cfg.batch_size / s_step,
+                        "first_step_s": meter.calls[0]["s"], "peak_mem_gb": peak / 1e9,
+                        "losses": losses, "launches_per_step": per}
+        print(f"phase 16 score steps {name} (bs={cfg.batch_size}, N={cfg.num_points}, repeat "
+              f"{cfg.repeat_num}, Adam): {s_step:.4f} s per step = {cfg.batch_size / s_step:.1f} "
+              f"samples/s (first {meter.calls[0]['s']:.3f} s; phase 7 light {light_step_s:.4f} s)"
+              f"; peak memory {peak / 1e9:.3f} GB; losses {[round(x, 4) for x in losses]}; "
+              f"FPS {per} + ball query {per} per step; {card}", flush=True)
+        del agent
+        torch.cuda.empty_cache()
+    return result
+
+
+def new_configurations(dev, card, pts: np.ndarray, light_step_s: float):
+    """Phase 16: the kernels at the new configurations' shapes, the SA + FP
+    encoder, serving under each new configuration and score steps."""
+    t0 = time.perf_counter()
+    fps_rows, bq_rows = new_config_kernels(dev)
+    out = {"fps_rows": fps_rows, "bq_rows": bq_rows, "msg_encoder": msg_encoder_on_card(dev, card)}
+    torch.cuda.empty_cache()
+    out["serving"] = new_config_serving(dev, card, pts)
+    out["training"] = new_config_training(dev, card, light_step_s)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 16 took {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -2588,6 +2884,8 @@ def main() -> int:
     cli["seconds"] = time.perf_counter() - t0
     print(f"phase 15 took {cli['seconds']:.1f} s", flush=True)
     torch.cuda.empty_cache()
+    phase16 = new_configurations(dev, card, pts, training["score"]["s_per_step"])
+    torch.cuda.empty_cache()
 
     fps_launches = results["ode"][1]["fps"]
     bq_launches = results["ode"][1]["ball_query"]
@@ -2635,19 +2933,24 @@ def main() -> int:
                     r["launches"][k] for r in cli["score"]["resumed"]],
                 "training_cli_energy_epoch_launches": cli["energy"]["launches"][k],
                 **{f"training_cli_{flow}_launches": cli["flows"][flow]["launches"][k]
-                   for flow in ("eval", "pred", "likelihood")}}
+                   for flow in ("eval", "pred", "likelihood")},
+                "new_config_serving_launches": {
+                    name: arm["launches"][k] for name, arm in phase16["serving"].items()},
+                "new_config_score_step_launches": {
+                    name: arm["launches_per_step"] for name, arm in phase16["training"].items()},
+                "msg_encoder_launches": phase16["msg_encoder"]["launches"][k]}
 
     kernels = [
         summary("fps", "genpose_tpu_torch/csrc/fps.cu", "genpose_tpu/ops/fps_pallas.py:75",
                 fps_rows, fps_launches, profiled_device_ms=profiled["ode"].get("fps"),
                 path="serving request", training_score_run_launches=train_launches["fps"],
-                **path_launches("fps")),
+                new_config_shapes=phase16["fps_rows"], **path_launches("fps")),
         summary("ball_query", "genpose_tpu_torch/csrc/ball_query.cu",
                 "genpose_tpu/ops/ball_query_pallas.py:84", bq_rows, bq_launches,
                 profiled_device_ms=profiled["ode"].get("ball_query"),
                 path="serving request",
                 training_score_run_launches=train_launches["ball_query"],
-                **path_launches("ball_query")),
+                new_config_shapes=phase16["bq_rows"], **path_launches("ball_query")),
         summary("fps_bq_fused", "genpose_tpu_torch/csrc/fps_bq_fused.cu",
                 "genpose_tpu/ops/fps_bq_fused.py:135", fused_rows, fused_launches,
                 profiled_device_ms=fused_profiled,
@@ -2659,6 +2962,8 @@ def main() -> int:
     print(json.dumps({"bf16": bf16}), flush=True)
     print(json.dumps({"checkpoints_and_samplers": phase14}), flush=True)
     print(json.dumps({"training_cli": cli}), flush=True)
+    print(json.dumps({"new_configurations": {k: v for k, v in phase16.items()
+                                             if k not in ("fps_rows", "bq_rows")}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

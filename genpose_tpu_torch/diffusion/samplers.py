@@ -353,10 +353,14 @@ def ode_sampler_adaptive(score_fn: Callable, batch_size: int, sde: SDE,
 
 def _block_normalize(x: torch.Tensor, pose_mode: str) -> torch.Tensor:
     """PC's per-step normalisation (ref ``samplers.py:134-143``): unit-norm
-    quaternion, or unit-norm 6D columns (the Euler modes are not ported)."""
+    quaternion; ``euler_xyz`` unchanged; else unit-norm 3-blocks over the
+    first six entries (the 6D columns, and for ``euler_xyz_sx_cx`` the sines
+    and the cosines, as the JAX sampler does)."""
     if pose_mode in ("quat_wxyz", "quat_xyzw"):
         return torch.cat([x[:, :4] / torch.linalg.norm(x[:, :4], dim=-1, keepdim=True),
                           x[:, 4:]], dim=-1)
+    if pose_mode == "euler_xyz":
+        return x
     r1 = x[:, :3] / torch.linalg.norm(x[:, :3], dim=-1, keepdim=True)
     r2 = x[:, 3:6] / torch.linalg.norm(x[:, 3:6], dim=-1, keepdim=True)
     return torch.cat([r1, r2, x[:, 6:]], dim=-1)

@@ -17,6 +17,10 @@
 - ``SplitTail`` / ``FusedTails``: the fusion tails with the ``pts_feat``
   projection split off, so samplers compute it once per request
   (``precompute``) and reuse it at every step (``from_proj``).
+- ``PerPointTail`` (ref ``rot_head.py:8-35``, ``trans_head.py:10-41``): the
+  decoder tail over per-point features, conv1's kernel stored as
+  [pts, t, pose] row blocks so its pts part is precomputed the same way.
+  Dropout draws from an explicit ``torch.Generator``, in train mode only.
 
 Parameters stay float32 whatever the compute dtype.  Where operands of two
 dtypes meet in a matmul (``FusedTails`` under ``encoder_f32_stages``: a
@@ -126,11 +130,22 @@ class SharedMLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_layers):
-            x = getattr(self, f"dense_{i}")(x)
-            shape = x.shape
-            x = getattr(self, f"bn_{i}")(x.float().reshape(-1, shape[-1]))
-            x = F.relu(x.reshape(shape).to(self.dtype))
+            x = F.relu(batch_norm(getattr(self, f"bn_{i}"), getattr(self, f"dense_{i}")(x)))
         return x
+
+
+def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+    """``bn`` over the last axis of ``x`` [..., C], normalised in float32
+    and cast back to ``x``'s dtype."""
+    return bn(x.float().reshape(-1, x.shape[-1])).reshape(x.shape).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dropout``: each entry kept with probability 1 - rate and
+    scaled by 1 / (1 - rate), the mask drawn from ``generator``."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class SplitTail(nn.Module):
@@ -189,6 +204,52 @@ class FusedTails(nn.Module):
         return out.reshape(out.shape[0], self.num_tails * self.out_dim)
 
 
+class PerPointTail(nn.Module):
+    """RotHead / TransHead decoder tail over per-point features,
+    channels-last: ``conv1(f -> 1024) + bn1 + relu -> conv2(1024 -> 256) +
+    bn2 + relu -> max over points -> conv3(256 -> 256) + bn3 + relu ->
+    dropout(0.2) -> conv4(256 -> out)``, every conv a 1x1 Conv1d, i.e. a
+    Dense.  conv1 is linear over the ``[pts_feat, t_feat, pose_feat]``
+    channel blocks (ref ``scorenet.py:198-204``), so its kernel is three row
+    blocks (flax layout ``[in, out]``) and ``bias1``; the pts block is
+    loop-invariant in a sampler and computed by ``precompute``.  BatchNorm:
+    torch's momentum 0.1 (flax 0.9) and eps 1e-5, float32 normalisation;
+    in train mode it uses batch statistics and dropout applies when a
+    generator is given (JAX: when the caller supplies a dropout rng)."""
+
+    def __init__(self, pts_dim: int = 1280, t_dim: int = 128, pose_feat_dim: int = 256,
+                 out_dim: int = 3, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.feat_kernel = nn.Parameter(torch.zeros(pts_dim, 1024))
+        self.t_kernel = nn.Parameter(torch.zeros(t_dim, 1024))
+        self.pose_kernel = nn.Parameter(torch.zeros(pose_feat_dim, 1024))
+        self.bias1 = nn.Parameter(torch.zeros(1024))
+        for name, width in (("bn1", 1024), ("bn2", 256), ("bn3", 256)):
+            self.add_module(name, nn.BatchNorm1d(width, eps=1e-5, momentum=0.1))
+        self.conv2 = Dense(1024, 256, dtype=dtype)
+        self.conv3 = Dense(256, 256, dtype=dtype)
+        self.conv4 = Dense(256, out_dim, dtype=dtype)
+
+    def precompute(self, pts_feat: torch.Tensor) -> torch.Tensor:
+        """pts_feat [bs, N, pts_dim] -> conv1's static part [bs, N, 1024]."""
+        return matmul(pts_feat, self.feat_kernel.to(self.dtype))
+
+    def from_proj(self, fp: torch.Tensor, t_feat: torch.Tensor, pose_feat: torch.Tensor,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+        """fp [bs, N, 1024]; t_feat [1 or bs, t_dim]; pose_feat [bs, pose_feat_dim]."""
+        dt = self.dtype
+        dyn = (matmul(t_feat, self.t_kernel.to(dt)) + matmul(pose_feat, self.pose_kernel.to(dt))
+               + self.bias1.to(dt))
+        h = F.relu(batch_norm(self.bn1, fp + dyn[:, None, :]))
+        h = F.relu(batch_norm(self.bn2, self.conv2(h)))
+        h = torch.amax(h, dim=1)  # max-pool over points (rot_head.py:26)
+        h = F.relu(batch_norm(self.bn3, self.conv3(h)))
+        if self.training and generator is not None:
+            h = dropout(h, 0.2, generator)
+        return self.conv4(h)
+
+
 @torch.no_grad()
 def cast_weights_(model: nn.Module) -> nn.Module:
     """Store every matmul weight of ``model`` in its module's compute dtype
@@ -196,7 +257,7 @@ def cast_weights_(model: nn.Module) -> nn.Module:
     copy that only runs inference: BatchNorm and the Fourier ``W`` stay
     float32, and the values are what the casts at use would give."""
     for m in model.modules():
-        if isinstance(m, (Dense, FusedTails)) and m.dtype != torch.float32:
+        if isinstance(m, (Dense, FusedTails, PerPointTail)) and m.dtype != torch.float32:
             for p in m.parameters(recurse=False):
                 p.data = p.data.to(m.dtype)
     return model

@@ -1,4 +1,4 @@
-"""PointNet++ MSG classification encoder (counterpart of ``genpose_tpu/models/pointnet2.py``).
+"""PointNet++ MSG encoders (counterpart of ``genpose_tpu/models/pointnet2.py``).
 
 Set-abstraction stage = FPS -> gather -> ball query -> group -> SharedMLP ->
 max-pool, channels-last ``[B, N, C]`` throughout.  The geometry of a stage
@@ -6,8 +6,14 @@ max-pool, channels-last ``[B, N, C]`` throughout.  The geometry of a stage
 on the coordinates, so ``cls_msg_geometry`` computes it once per cloud and
 the score and energy encoders both consume it.
 
-Only the ``light`` configuration of the released checkpoints is ported
-(reference ``pointnet2.py:57-66``, 1024-d feature).
+``Pointnet2ClsMSG`` is the classification encoder GenPose uses, in the four
+stage configurations of the reference (``pointnet2.py:32-79``): ``full``
+and ``lighter`` (5 stages, 4 of them with FPS), ``light`` (the released
+checkpoints' default) and ``dense`` (4 stages, 3 with FPS), each ending in a
+GroupAll stage and a 1024-d feature.  ``Pointnet2MSG`` is the
+segmentation-style SA + FP encoder (reference ``pointnet2.py:92-163``; off
+GenPose's paths, as in the JAX package): per-point features from 3-NN
+feature propagation (``PointnetFPModule``) and an optional per-point logit.
 
 Precision (JAX ``pointnet2.py:113-160,236-238,405-424``): FPS, the ball
 query and the centres always run in float32 (the kernels take float32
@@ -27,16 +33,47 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 from torch import nn
 
-from genpose_tpu_torch.models.layers import SharedMLP
+from genpose_tpu_torch.models.layers import Dense, SharedMLP, dropout
 from genpose_tpu_torch.ops.pointcloud import (
     ball_query_msg,
     farthest_point_sample,
     gather_points,
     group_points,
+    three_interpolate,
+    three_nn,
 )
 
+# Segmentation-style config (reference pointnet2.py:18-30).
+MSG_CFG: Dict[str, Any] = {
+    "NPOINTS": [512, 256, 128, 64],
+    "RADIUS": [[0.01, 0.02], [0.02, 0.04], [0.04, 0.08], [0.08, 0.16]],
+    "NSAMPLE": [[16, 32], [16, 32], [16, 32], [16, 32]],
+    "MLPS": [
+        [[16, 16, 32], [32, 32, 64]],
+        [[64, 64, 128], [64, 96, 128]],
+        [[128, 196, 256], [128, 196, 256]],
+        [[256, 256, 512], [256, 384, 512]],
+    ],
+    "FP_MLPS": [[64, 64], [128, 128], [256, 256], [512, 512]],
+    "CLS_FC": [128],
+}
+
+# The classification stage configs (reference pointnet2.py:32-79).
 CLS_MSG_CONFIGS: Dict[str, Dict[str, Any]] = {
-    "light": {  # ClsMSG_CFG_Light (reference pointnet2.py:57-66)
+    "full": {  # ClsMSG_CFG (reference pointnet2.py:32-44): 5 stages
+        "NPOINTS": [512, 256, 128, 64, None],
+        "RADIUS": [[0.01, 0.02], [0.02, 0.04], [0.04, 0.08], [0.08, 0.16],
+                   [None, None]],
+        "NSAMPLE": [[16, 32], [16, 32], [16, 32], [16, 32], [None, None]],
+        "MLPS": [
+            [[16, 16, 32], [32, 32, 64]],
+            [[64, 64, 128], [64, 96, 128]],
+            [[128, 196, 256], [128, 196, 256]],
+            [[256, 256, 512], [256, 384, 512]],
+            [[512, 512], [512, 512]],
+        ],
+    },
+    "light": {  # ClsMSG_CFG_Light (reference pointnet2.py:57-66), the default
         "NPOINTS": [512, 256, 128, None],
         "RADIUS": [[0.02, 0.04], [0.04, 0.08], [0.08, 0.16], [None, None]],
         "NSAMPLE": [[16, 32], [16, 32], [16, 32], [None, None]],
@@ -47,13 +84,30 @@ CLS_MSG_CONFIGS: Dict[str, Dict[str, Any]] = {
             [[256, 256, 512], [256, 384, 512]],
         ],
     },
+    "lighter": {  # ClsMSG_CFG_Lighter
+        "NPOINTS": [512, 256, 128, 64, None],
+        "RADIUS": [[0.01], [0.02], [0.04], [0.08], [None]],
+        "NSAMPLE": [[64], [32], [16], [8], [None]],
+        "MLPS": [
+            [[32, 32, 64]],
+            [[64, 64, 128]],
+            [[128, 196, 256]],
+            [[256, 256, 512]],
+            [[512, 512, 1024]],
+        ],
+    },
+    "dense": {  # ClsMSG_CFG_Dense
+        "NPOINTS": [512, 256, 128, None],
+        "RADIUS": [[0.02, 0.04], [0.04, 0.08], [0.08, 0.16], [None, None]],
+        "NSAMPLE": [[32, 64], [16, 32], [8, 16], [None, None]],
+        "MLPS": [
+            [[16, 16, 32], [32, 32, 64]],
+            [[64, 64, 128], [64, 96, 128]],
+            [[128, 196, 256], [128, 196, 256]],
+            [[256, 256, 512], [256, 384, 512]],
+        ],
+    },
 }
-
-
-def _config(name: str) -> Dict[str, Any]:
-    if name not in CLS_MSG_CONFIGS:
-        raise NotImplementedError(f"pointnet2_params={name!r} is not ported (only 'light')")
-    return CLS_MSG_CONFIGS[name]
 
 
 def sa_geometry(xyz: torch.Tensor, npoint: Optional[int], radii, nsamples,
@@ -89,7 +143,7 @@ def cls_msg_geometry(pointcloud: torch.Tensor, config: str = "light",
                      dtype: torch.dtype = torch.float32, f32_stages: int = 0):
     """Per-stage :func:`sa_geometry` list for :class:`Pointnet2ClsMSG`;
     ``dtype`` and ``f32_stages`` as the consuming encoders'."""
-    params = _config(config)
+    params = CLS_MSG_CONFIGS[config]
     n_stages = len(params["NPOINTS"])
     xyz = pointcloud[..., :3]
     geoms = []
@@ -141,17 +195,93 @@ class PointnetSAModuleMSG(nn.Module):
         return geometry["new_xyz"], torch.cat(outs, dim=-1)
 
 
+class PointnetFPModule(nn.Module):
+    """Feature propagation by 3-NN inverse-distance interpolation (ref
+    ``pointnet2_modules.py:117-158``): the known points' features
+    interpolated onto the unknown points, concatenated with the unknown
+    points' own features, then a SharedMLP (flax auto-name ``SharedMLP_0``)."""
+
+    def __init__(self, in_features: int, mlp: Sequence[int], dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.SharedMLP_0 = SharedMLP(in_features, mlp, dtype=dtype)
+
+    def forward(self, unknown, known, unknown_feats, known_feats):
+        """unknown [B, n, 3], known [B, m, 3], unknown_feats [B, n, C1] or
+        None, known_feats [B, m, C2] -> [B, n, mlp[-1]]."""
+        dist, idx = three_nn(unknown, known)
+        dist_recip = 1.0 / (dist + 1e-8)
+        weight = dist_recip / torch.sum(dist_recip, dim=-1, keepdim=True)
+        interpolated = three_interpolate(known_feats, idx, weight)
+        if unknown_feats is not None:
+            interpolated = torch.cat([interpolated, unknown_feats], dim=-1)
+        return self.SharedMLP_0(interpolated)
+
+
+class Pointnet2MSG(nn.Module):
+    """Segmentation-style SA + FP encoder (ref ``pointnet2.py:92-163``) over
+    ``MSG_CFG``: [B, N, 3] -> per-point features [B, N, 64]; with
+    ``cls_head`` also the per-point logit [B, N, 1] (``cls_0`` SharedMLP,
+    Dropout(0.5), ``cls_out`` Dense).  The dropout applies in train mode
+    when ``forward`` is given a generator (JAX: when the caller supplies a
+    dropout rng)."""
+
+    def __init__(self, cls_head: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.cls_head = cls_head
+        self.n_stages, self.n_fp = len(MSG_CFG["NPOINTS"]), len(MSG_CFG["FP_MLPS"])
+        widths = [0]  # feature channels at each level (none on the input)
+        for k in range(self.n_stages):
+            mlps = MSG_CFG["MLPS"][k]
+            self.add_module(f"sa_{k}", PointnetSAModuleMSG(
+                npoint=MSG_CFG["NPOINTS"][k], radii=MSG_CFG["RADIUS"][k],
+                nsamples=MSG_CFG["NSAMPLE"][k], mlps=mlps, in_channels=widths[-1],
+                dtype=dtype))
+            widths.append(sum(m[-1] for m in mlps))
+        known = widths[-1]
+        for k in reversed(range(self.n_fp)):
+            mlp = MSG_CFG["FP_MLPS"][k]
+            self.add_module(f"fp_{k}", PointnetFPModule(known + widths[k], mlp, dtype=dtype))
+            known = mlp[-1]
+        if cls_head:
+            c = known
+            for j, width in enumerate(MSG_CFG["CLS_FC"]):
+                self.add_module(f"cls_{j}", SharedMLP(c, (width,), dtype=dtype))
+                c = width
+            self.cls_out = Dense(c, 1, dtype=dtype)
+
+    def forward(self, pointcloud: torch.Tensor, generator: Optional[torch.Generator] = None):
+        """pointcloud [B, N, 3] -> per-point features, or (features, logit)."""
+        l_xyz, l_features = [pointcloud[..., :3]], [None]
+        for k in range(self.n_stages):
+            new_xyz, feat = getattr(self, f"sa_{k}")(l_xyz[-1], l_features[-1])
+            l_xyz.append(new_xyz)
+            l_features.append(feat)
+        for k in reversed(range(self.n_fp)):  # level k takes level k+1's features
+            l_features[k] = getattr(self, f"fp_{k}")(l_xyz[k], l_xyz[k + 1], l_features[k],
+                                                     l_features[k + 1])
+        per_point = l_features[0]
+        if not self.cls_head:
+            return per_point
+        h = per_point
+        for j in range(len(MSG_CFG["CLS_FC"])):
+            h = getattr(self, f"cls_{j}")(h)
+            if self.training and generator is not None:
+                h = dropout(h, 0.5, generator)
+        return per_point, self.cls_out(h)
+
+
 class Pointnet2ClsMSG(nn.Module):
-    """4-stage MSG classification encoder over xyz -> 1024-d global feature
-    (ref ``pointnet2.py:166-211``; GenPose feeds no per-point features).
-    Stage k computes in float32 where ``stage_is_f32(k, 4, f32_stages)``,
+    """MSG classification encoder over xyz -> 1024-d global feature
+    (ref ``pointnet2.py:166-211``; GenPose feeds no per-point features), in
+    the stage configuration ``config`` of ``CLS_MSG_CONFIGS``.  Stage k
+    computes in float32 where ``stage_is_f32(k, n_stages, f32_stages)``,
     else in ``dtype``; ``geometry_dtype`` (None: the stage's dtype) sets the
     dtype of every stage's grouped coordinates."""
 
     def __init__(self, config: str = "light", dtype: torch.dtype = torch.float32,
                  geometry_dtype: Optional[torch.dtype] = None, f32_stages: int = 0):
         super().__init__()
-        params = _config(config)
+        params = CLS_MSG_CONFIGS[config]
         self.n_stages = len(params["NPOINTS"])
         c = 0
         for k in range(self.n_stages):

@@ -1,14 +1,17 @@
 """GFObjectPose: encoder + score-or-energy head (counterpart of ``genpose_tpu/models/posenet.py``).
 
-The module exposes the methods the agent composes: ``encode_pts`` (cloud ->
-1024-d feature), ``precompute_head`` (loop-invariant tail projections of the
-feature), ``score_with``, ``energy_with`` and ``denoise_with`` (one head
-evaluation from those projections).  A score model under ``sde_mode="edm"``
-has the EDM decoder head (``PoseDecoderNet``, JAX ``agent.py:72,89``): its
+The encoder is ``pts_encoder``'s: PointNet (``pointnet``), PointNet++
+(``pointnet2``, in the stage configuration ``pointnet2_params``), or both
+with their features concatenated and fused by a Dense(1024) + ReLU
+(``pointnet_and_pointnet2``; ref ``posenet.py:71-91``).  The module exposes
+the methods the agent composes: ``encode_pts`` (cloud -> 1024-d feature),
+``precompute_head`` (loop-invariant tail projections of the feature),
+``score_with``, ``energy_with`` and ``denoise_with`` (one head evaluation
+from those projections).  A score model under ``sde_mode="edm"`` has the
+EDM decoder head (``PoseDecoderNet``, JAX ``agent.py:72,89``): its
 ``score_with`` is the denoiser's implied score, ``denoise_with`` the
-denoiser.  ``build_model`` is the entry point that builds one: it resolves the
-device, checks the configuration against what the port supports and
-initialises the weights from a seed.
+denoiser.  ``build_model`` is the entry point that builds one: it resolves
+the device and initialises the weights from a seed.
 
 Precision knobs (JAX ``config.py:119-177``, ``posenet.py:49-125``):
 ``compute_dtype`` sets the encoder's and, with ``head_dtype="compute"``,
@@ -26,11 +29,14 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from genpose_tpu_torch.config import Config
 from genpose_tpu_torch.diffusion.sde import init_sde
 from genpose_tpu_torch.models.energynet import PoseEnergyNet
+from genpose_tpu_torch.models.layers import Dense
+from genpose_tpu_torch.models.pointnet import PointNetfeat
 from genpose_tpu_torch.models.pointnet2 import Pointnet2ClsMSG
 from genpose_tpu_torch.models.scorenet import PoseDecoderNet, PoseScoreNet
 from genpose_tpu_torch.utils.device import resolve_device
@@ -40,23 +46,40 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class GFObjectPose(nn.Module):
-    """Composite model (ref ``posenet.py:18-68``): PointNet++ encoder and a
-    score, EDM decoder (``decoder_head``) or energy head."""
+    """Composite model (ref ``posenet.py:18-68``): the ``pts_encoder``
+    encoder and a score, EDM decoder (``decoder_head``) or energy head.
+    Module names follow the flax tree: ``encoder``, or ``encoder_pn``,
+    ``encoder_pn2`` and ``fusion_layer``; then ``head``."""
 
     def __init__(self, marginal_prob_fn: Callable, pose_mode: str = "rot_matrix",
                  regression_head: str = "Rx_Ry_and_T", posenet_mode: str = "score",
-                 pointnet2_params: str = "light", energy_mode: str = "IP",
-                 s_theta_mode: str = "score", norm_energy: str = "identical",
-                 dtype: torch.dtype = torch.float32, head_dtype: Optional[torch.dtype] = None,
+                 pts_encoder: str = "pointnet2", pointnet2_params: str = "light",
+                 energy_mode: str = "IP", s_theta_mode: str = "score",
+                 norm_energy: str = "identical", dtype: torch.dtype = torch.float32,
+                 head_dtype: Optional[torch.dtype] = None,
                  geometry_dtype: Optional[torch.dtype] = None, f32_stages: int = 0,
                  decoder_head: bool = False):
         super().__init__()
         self.posenet_mode, self.decoder_head = posenet_mode, decoder_head
+        self.pts_encoder = pts_encoder
         # what a precomputed geometry must be built with (``PoseAgent.pts_geometry``)
         self.dtype, self.geometry_dtype, self.f32_stages = dtype, geometry_dtype, f32_stages
         hdt = dtype if head_dtype is None else head_dtype
-        self.encoder = Pointnet2ClsMSG(config=pointnet2_params, dtype=dtype,
-                                       geometry_dtype=geometry_dtype, f32_stages=f32_stages)
+
+        def pointnet2():
+            return Pointnet2ClsMSG(config=pointnet2_params, dtype=dtype,
+                                   geometry_dtype=geometry_dtype, f32_stages=f32_stages)
+
+        if pts_encoder == "pointnet":
+            self.encoder = PointNetfeat(in_dim=3, out_dim=1024, dtype=dtype)
+        elif pts_encoder == "pointnet2":
+            self.encoder = pointnet2()
+        elif pts_encoder == "pointnet_and_pointnet2":
+            self.encoder_pn = PointNetfeat(in_dim=3, out_dim=1024, dtype=dtype)
+            self.encoder_pn2 = pointnet2()
+            self.fusion_layer = Dense(2048, 1024, dtype=dtype)
+        else:
+            raise NotImplementedError(pts_encoder)
         if posenet_mode == "score" and decoder_head:
             self.head = PoseDecoderNet(marginal_prob_fn, pose_mode=pose_mode,
                                        regression_head=regression_head, dtype=hdt)
@@ -73,8 +96,14 @@ class GFObjectPose(nn.Module):
 
     def encode_pts(self, pts: torch.Tensor, geometry=None) -> torch.Tensor:
         """pts [bs, N, 3] -> pts_feat [bs, 1024] (ref ``posenet.py:71-91``).
-        ``geometry``: an optional precomputed ``cls_msg_geometry`` list."""
-        return self.encoder(pts, geometry=geometry)
+        ``geometry``: an optional precomputed ``cls_msg_geometry`` list for
+        the PointNet++ stages (the plain PointNet encoder takes none)."""
+        if self.pts_encoder == "pointnet":
+            return self.encoder(pts)
+        if self.pts_encoder == "pointnet2":
+            return self.encoder(pts, geometry=geometry)
+        feat = torch.cat([self.encoder_pn(pts), self.encoder_pn2(pts, geometry=geometry)], dim=-1)
+        return F.relu(self.fusion_layer(feat))
 
     def precompute_head(self, pts_feat: torch.Tensor):
         """Loop-invariant tail projections of pts_feat: computed once per
@@ -102,19 +131,17 @@ def build_model(cfg: Config, posenet_mode: Optional[str] = None,
     """A ``GFObjectPose`` for ``cfg`` on ``device``, in eval mode, with fresh
     weights drawn from ``cfg.seed``: zero tail outputs, as in the reference
     and the JAX package.  A score model under ``sde_mode="edm"`` gets the
-    EDM decoder head.  Raises if CUDA is asked for but
-    absent, or if ``cfg`` selects something the port does not have yet."""
+    EDM decoder head.  Raises if CUDA is asked for but absent, or for a
+    value of ``pts_encoder``, ``pointnet2_params``, ``pose_mode`` or
+    ``regression_head`` that the JAX package does not take either."""
     dev = resolve_device(device)
-    if cfg.pts_encoder != "pointnet2":
-        raise NotImplementedError(f"pts_encoder={cfg.pts_encoder!r} is not ported")
-    if cfg.pose_mode.startswith("euler"):
-        raise NotImplementedError(f"pose_mode={cfg.pose_mode!r} is not ported")
     sde = init_sde(cfg.sde_mode)
     mode = posenet_mode or cfg.posenet_mode
     model = GFObjectPose(
         marginal_prob_fn=sde.marginal_prob, pose_mode=cfg.pose_mode,
         regression_head=cfg.regression_head, posenet_mode=mode,
-        pointnet2_params=cfg.pointnet2_params, energy_mode=cfg.energy_mode,
+        pts_encoder=cfg.pts_encoder, pointnet2_params=cfg.pointnet2_params,
+        energy_mode=cfg.energy_mode,
         s_theta_mode=cfg.s_theta_mode, norm_energy=cfg.norm_energy,
         dtype=DTYPES[cfg.compute_dtype],
         head_dtype=torch.float32 if cfg.head_dtype == "float32" else None,

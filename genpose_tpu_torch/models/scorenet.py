@@ -10,6 +10,11 @@ MLP conditioned on (pts_feat [1024], pose [pose_dim], t):
 Identical tail shapes fuse into one ``FusedTails`` bank (``Rx_Ry_and_T`` ->
 3 x 256); other heads are a list of ``SplitTail``s.  ``PoseDecoderNet`` is
 the EDM denoiser head over the same tails (``sde_mode="edm"`` score models).
+With ``per_point_feature`` the trunk takes per-point features
+[bs, N, pts_feat_dim] and its tails are ``PerPointTail`` decoder heads
+(ref ``scorenet.py:86,146-149``; ``Rx_Ry_and_T`` only, as there).  As in
+the JAX package, a score net built directly selects it; the composite
+model does not wire it (the reference hardcodes it off, ``posenet.py:57``).
 
 ``dtype`` is the head's compute dtype (``head_dtype``): ``t_dense``,
 ``pose_dense_0/1`` and the tails compute in it; the Fourier features stay
@@ -20,7 +25,7 @@ quotient bfloat16 in PyTorch).
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +35,7 @@ from genpose_tpu_torch.models.layers import (
     Dense,
     FusedTails,
     GaussianFourierProjection,
+    PerPointTail,
     PositionalEmbedding,
     SplitTail,
 )
@@ -87,10 +93,12 @@ class _TailBank(nn.Module):
 class PoseTrunk(_TailBank):
     """Shared (t, pose) conditioning trunk + fusion tails, used by the score
     and energy heads.  ``precompute`` hoists the pts_feat projections out of
-    the sampler's step loop."""
+    the sampler's step loop.  ``per_point_feature``: ``PerPointTail`` tails
+    over per-point features of ``pts_feat_dim`` channels."""
 
     def __init__(self, pose_mode: str = "rot_matrix", regression_head: str = "Rx_Ry_and_T",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, per_point_feature: bool = False,
+                 pts_feat_dim: int = 1280):
         super().__init__()
         pose_dim = get_pose_dim(pose_mode)
         if regression_head == "Rx_Ry_and_T" and pose_mode != "rot_matrix":
@@ -99,31 +107,53 @@ class PoseTrunk(_TailBank):
         self.t_dense = Dense(128, 128, dtype=dtype)
         self.pose_dense_0 = Dense(pose_dim, 256, dtype=dtype)
         self.pose_dense_1 = Dense(256, 256, dtype=dtype)
-        self._build_tails(_tail_specs(regression_head, pose_dim), dtype)
+        specs = _tail_specs(regression_head, pose_dim)
+        self.per_point_feature = per_point_feature
+        if per_point_feature:
+            # the reference wires per-point heads only for Rx_Ry_and_T
+            # (scorenet.py:146-149)
+            if regression_head != "Rx_Ry_and_T":
+                raise NotImplementedError("per_point_feature requires Rx_Ry_and_T")
+            self.tail_names = tuple(name for name, _, _ in specs)
+            for name, _, out_dim in specs:
+                self.add_module(name, PerPointTail(pts_dim=pts_feat_dim, out_dim=out_dim,
+                                                   dtype=dtype))
+        else:
+            self._build_tails(specs, dtype)
 
-    def f_theta_from(self, projs, sampled_pose: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def f_theta_from(self, projs, sampled_pose: torch.Tensor, t: torch.Tensor,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Head output given precomputed projections.  t is [n, 1], or a
-        step-shared [1, 1] that broadcasts through the fused bank."""
+        step-shared [1, 1] that broadcasts through the fused bank.
+        ``generator``: the per-point tails' dropout draws in train mode."""
         t_feat = F.relu(self.t_dense(self.t_fourier(t[:, 0])))
         pose_feat = F.relu(self.pose_dense_0(sampled_pose))
         pose_feat = F.relu(self.pose_dense_1(pose_feat))
+        if self.per_point_feature:
+            return torch.cat([getattr(self, n).from_proj(fp, t_feat, pose_feat, generator)
+                              for n, fp in zip(self.tail_names, projs)], dim=-1)
         return self._tails_from_proj(projs, t_feat, pose_feat)
 
 
 class PoseScoreNet(nn.Module):
+    """The score head: the trunk's output over sigma(t) + 1e-7.
+    ``per_point_feature`` as ``PoseTrunk``'s."""
+
     def __init__(self, marginal_prob_fn: Callable, pose_mode: str = "rot_matrix",
-                 regression_head: str = "Rx_Ry_and_T", dtype: torch.dtype = torch.float32):
+                 regression_head: str = "Rx_Ry_and_T", dtype: torch.dtype = torch.float32,
+                 per_point_feature: bool = False, pts_feat_dim: int = 1280):
         super().__init__()
         self.marginal_prob_fn = marginal_prob_fn
-        self.trunk = PoseTrunk(pose_mode=pose_mode, regression_head=regression_head, dtype=dtype)
+        self.trunk = PoseTrunk(pose_mode=pose_mode, regression_head=regression_head, dtype=dtype,
+                               per_point_feature=per_point_feature, pts_feat_dim=pts_feat_dim)
 
     def precompute(self, pts_feat):
         return self.trunk.precompute(pts_feat)
 
-    def score_from(self, projs, sampled_pose, t):
+    def score_from(self, projs, sampled_pose, t, generator: Optional[torch.Generator] = None):
         _, std = self.marginal_prob_fn(None, t)
         std = torch.reshape(std, (-1, 1))
-        return self.trunk.f_theta_from(projs, sampled_pose, t) / (std + 1e-7)
+        return self.trunk.f_theta_from(projs, sampled_pose, t, generator) / (std + 1e-7)
 
 
 class PoseDecoderNet(_TailBank):

@@ -9,7 +9,10 @@ Reference semantics (the upstream CUDA extension):
   ``nsample`` point indices, in index order, with d^2 < r^2, padded with the
   first hit; an all-zero row when the ball is empty;
 - gather / group: plain indexing (``torch.gather``), whose autograd
-  backward is the scatter-add of ``group_points_gpu.cu``.
+  backward is the scatter-add of ``group_points_gpu.cu``;
+- three-NN interpolation, ``src/interpolate_gpu.cu`` (the segmentation
+  encoder's feature propagation): plain PyTorch on every device, as the JAX
+  package computes it in plain XLA (no TPU kernel).
 
 Each kernel has two versions.  ``*_ref`` is the plain PyTorch version, a
 transcription of the JAX oracle; the dispatchers ``farthest_point_sample``,
@@ -100,6 +103,32 @@ def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """points [B, N, C], idx [B, M, S] -> [B, M, S, C] (ref ``group_points_gpu.cu:47-86``)."""
     B, M, S = idx.shape
     return gather_points(points, idx.reshape(B, M * S)).reshape(B, M, S, points.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# Three-NN interpolation (ref ``interpolate_gpu.cu``)
+# ---------------------------------------------------------------------------
+
+def three_nn(unknown: torch.Tensor, known: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 3 nearest known points of each unknown point.
+
+    unknown [B, N, 3], known [B, M, 3] -> (dist [B, N, 3], idx [B, N, 3]
+    int32), Euclidean distances (the reference wrapper's sqrt of the
+    kernel's d^2, ``pointnet2_utils.py:99``).  ``jax.lax.top_k`` orders
+    equal distances by the lower index; ``torch.topk`` promises no order on
+    ties, so the three smallest are taken by a stable sort, which keeps
+    equal distances in index order (duplicate points, as ``sample_points``
+    makes by tiling a small cloud, tie exactly)."""
+    d2 = _sq_dist(unknown[:, :, None, :], known[:, None, :, :])  # [B, N, M]
+    d2, idx = torch.sort(d2, dim=-1, stable=True)
+    return torch.sqrt(torch.clamp(d2[..., :3], min=0.0)), idx[..., :3].to(torch.int32)
+
+
+def three_interpolate(features: torch.Tensor, idx: torch.Tensor,
+                      weight: torch.Tensor) -> torch.Tensor:
+    """Inverse-distance weighted blend (ref ``interpolate_gpu.cu:77-106``).
+    features [B, M, C]; idx, weight [B, N, 3] -> [B, N, C]."""
+    return torch.sum(group_points(features, idx) * weight[..., None], dim=2)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
 """Batched pose / rotation math in PyTorch (counterpart of ``genpose_tpu/ops/pose.py``).
 
-The subset the serving and training paths need: pose dims, quaternion <->
-matrix, the reference's *transposed* 6D convention (``utils/misc.py:136``:
-the 6D vector holds the first two **columns** of R), rotation re-projection,
+Pose dims, quaternion <-> matrix, the reference's *transposed* 6D
+convention (``utils/misc.py:136``: the 6D vector holds the first two
+**columns** of R), the pytorch3d 'ZYX' Euler angles (``utils/misc.py:142-144``;
+``euler_xyz`` holds the angles, ``euler_xyz_sx_cx`` their sines then
+cosines), rotation re-projection,
 (R, t) inversion, pose vector <-> (R, t) <-> 4x4, and the 4x4
 eigen-average of quaternions
 (``utils/misc.py:227-249``).  All functions are
@@ -97,18 +99,40 @@ def matrix_to_rot6d(m: torch.Tensor) -> torch.Tensor:
     return torch.cat([m[..., :, 0], m[..., :, 1]], dim=-1)
 
 
-def get_rot_matrix(batch_pose: torch.Tensor, pose_mode: str = "quat_wxyz") -> torch.Tensor:
-    """Rotation part of a pose vector -> [..., 3, 3] (reference ``misc.py:114-148``).
+def _axis_rot(axis: str, angle: torch.Tensor) -> torch.Tensor:
+    c, s = torch.cos(angle), torch.sin(angle)
+    one, zero = torch.ones_like(angle), torch.zeros_like(angle)
+    if axis == "X":
+        rows = [(one, zero, zero), (zero, c, -s), (zero, s, c)]
+    elif axis == "Y":
+        rows = [(c, zero, s), (zero, one, zero), (-s, zero, c)]
+    else:  # Z
+        rows = [(c, -s, zero), (s, c, zero), (zero, zero, one)]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
-    The quaternion modes and ``rot_matrix`` are ported; the Euler modes wait.
-    """
+
+def euler_zyx_to_matrix(angles: torch.Tensor) -> torch.Tensor:
+    """pytorch3d ``euler_angles_to_matrix(angles, 'ZYX')``: Rz(a0) Ry(a1) Rx(a2).
+    angles [..., 3] -> [..., 3, 3]; float32 matmuls (TF32 is off)."""
+    rz = _axis_rot("Z", angles[..., 0])
+    ry = _axis_rot("Y", angles[..., 1])
+    rx = _axis_rot("X", angles[..., 2])
+    return torch.matmul(rz, torch.matmul(ry, rx))
+
+
+def get_rot_matrix(batch_pose: torch.Tensor, pose_mode: str = "quat_wxyz") -> torch.Tensor:
+    """Rotation part of a pose vector -> [..., 3, 3] (reference ``misc.py:114-148``)."""
     if pose_mode == "quat_wxyz":
         return quat_wxyz_to_matrix(batch_pose)
     if pose_mode == "quat_xyzw":
         return quat_wxyz_to_matrix(batch_pose[..., [3, 0, 1, 2]])
     if pose_mode == "rot_matrix":
         return rot6d_to_matrix(batch_pose)
-    raise NotImplementedError(f"rotation mode {pose_mode} is not ported")
+    if pose_mode == "euler_xyz_sx_cx":
+        return euler_zyx_to_matrix(torch.atan2(batch_pose[..., :3], batch_pose[..., 3:6]))
+    if pose_mode == "euler_xyz":
+        return euler_zyx_to_matrix(batch_pose)
+    raise NotImplementedError(f"rotation mode {pose_mode} is not supported")
 
 
 def normalize_rotation(rotation: torch.Tensor, pose_mode: str) -> torch.Tensor:
@@ -118,7 +142,12 @@ def normalize_rotation(rotation: torch.Tensor, pose_mode: str) -> torch.Tensor:
             torch.linalg.norm(rotation, dim=-1, keepdim=True), min=_EPS)
     if pose_mode == "rot_matrix":
         return matrix_to_rot6d(rot6d_to_matrix(rotation))
-    raise NotImplementedError(f"rotation mode {pose_mode} is not ported")
+    if pose_mode == "euler_xyz_sx_cx":
+        theta = torch.atan2(rotation[..., :3], rotation[..., 3:6])
+        return torch.cat([torch.sin(theta), torch.cos(theta)], dim=-1)
+    if pose_mode == "euler_xyz":
+        return rotation
+    raise NotImplementedError(f"rotation mode {pose_mode} is not supported")
 
 
 def inverse_RT(rot: torch.Tensor, trans: torch.Tensor):

@@ -15,8 +15,9 @@ Usage (the flags of ``tools/port_torch_ckpt.py``):
         --input  scorenet.pth \\
         --output results/ckpts/ported_score \\
         --posenet_mode score \\
-        [--pts_encoder pointnet2 --regression_head Rx_Ry_and_T \\
-         --pose_mode rot_matrix --sde_mode ve --num_points 1024]
+        [--pts_encoder pointnet2 --pointnet2_params light \\
+         --regression_head Rx_Ry_and_T --pose_mode rot_matrix --sde_mode ve \\
+         --num_points 1024]
 
 ``--sde_mode edm`` with ``--posenet_mode score`` reads an EDM decoder head.
 """
@@ -32,6 +33,7 @@ def main(argv=None):
     p.add_argument("--output", required=True, help="checkpoint directory to write")
     p.add_argument("--posenet_mode", default="score", choices=["score", "energy"])
     p.add_argument("--pts_encoder", default="pointnet2")
+    p.add_argument("--pointnet2_params", default="light")
     p.add_argument("--regression_head", default="Rx_Ry_and_T")
     p.add_argument("--pose_mode", default="rot_matrix")
     p.add_argument("--sde_mode", default="ve")
@@ -44,6 +46,7 @@ def main(argv=None):
     from genpose_tpu_torch.utils.torch_port import port_checkpoint_file
 
     cfg = Config(posenet_mode=args.posenet_mode, pts_encoder=args.pts_encoder,
+                 pointnet2_params=args.pointnet2_params,
                  regression_head=args.regression_head, pose_mode=args.pose_mode,
                  sde_mode=args.sde_mode, num_points=args.num_points)
     path = port_checkpoint_file(args.input, args.output, cfg, posenet_mode=args.posenet_mode,

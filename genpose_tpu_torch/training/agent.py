@@ -5,7 +5,8 @@ parameters in ``model`` and a ``TrainState`` (``training/state.py``) with the
 optimizer state and the EMA shadow.  It exposes:
 
 - ``pts_geometry`` (``agent.py:188-204``): the weight-independent PointNet++
-  geometry of a cloud, shared by the score and energy encoders;
+  geometry of a cloud, shared by the score and energy encoders (None for
+  the plain PointNet encoder);
 - ``train_step`` (``agent.py:292-308``): one encoder pass in train mode
   (BatchNorm on batch statistics, running statistics updated) and
   ``repeat_num`` DSM draws through one head call, then the optimizer step
@@ -161,8 +162,12 @@ class PoseAgent:
     def pts_geometry(self, pts: torch.Tensor):
         """FPS + ball query + grouped coordinates of a cloud, for every SA
         stage, in the dtypes the encoder computes its inline geometry in
-        (``agent.py:191-203``): ``geometry_dtype`` float32 makes every stage
-        float32, else each stage takes its own dtype."""
+        (``agent.py:188-204``): ``geometry_dtype`` float32 makes every stage
+        float32, else each stage takes its own dtype.  None for the plain
+        PointNet encoder, which has no geometry pass; every method that
+        takes a geometry takes None."""
+        if self.cfg.pts_encoder == "pointnet":
+            return None
         m = self.model
         if m.geometry_dtype is not None:
             return cls_msg_geometry(pts, self.cfg.pointnet2_params, dtype=m.geometry_dtype)

@@ -5,7 +5,10 @@
 - ``sort_results``: energies in ground-truth-error order, per channel
   (``reward.py:63-83``);
 - ``sort_poses_by_energy``: decoupled rot/trans hypothesis sort
-  (``reward.py:131-155``).
+  (``reward.py:131-155``);
+- ``RewardModel``: the reference's standalone pose-reward MLP
+  (``reward.py:14-60``), off every path (the energy net plays its role),
+  as in the JAX package.
 
 ``jnp.argsort`` is stable, so equal keys keep their index order; every sort
 here passes ``stable=True`` (``descending=True`` would order ties
@@ -15,6 +18,11 @@ differently, hence the negated keys).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch import nn
+
+from genpose_tpu_torch.models.layers import Dense
+from genpose_tpu_torch.ops.pose import get_pose_dim
 
 
 def ranking_loss(energy: torch.Tensor) -> torch.Tensor:
@@ -64,3 +72,26 @@ def sort_poses_by_energy(poses: torch.Tensor, energy: torch.Tensor):
     sorted_poses = torch.gather(poses, 1, rot_order[..., None].expand(-1, -1, d))
     sorted_trans = torch.gather(poses[..., -3:], 1, trans_order[..., None].expand(-1, -1, 3))
     return torch.cat([sorted_poses[..., :-3], sorted_trans], dim=-1), sorted_energy
+
+
+class RewardModel(nn.Module):
+    """Pose-reward MLP (ref ``reward.py:14-60``): pose encoder pose_dim ->
+    256 -> 256, concatenated with the 1024-d cloud feature, decoder
+    1280 -> 256 -> 2 (rotation score, translation score).  Layer names are
+    flax's auto-names (``Dense_0``..``Dense_3``)."""
+
+    def __init__(self, pose_mode: str = "rot_matrix", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.pose_mode, self.pose_dim = pose_mode, get_pose_dim(pose_mode)
+        for i, (c, w) in enumerate(((self.pose_dim, 256), (256, 256), (1024 + 256, 256),
+                                    (256, 2))):
+            self.add_module(f"Dense_{i}", Dense(c, w, dtype=dtype))
+
+    def forward(self, pts_feature: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
+        """pts_feature [bs, 1024], pose [bs, pose_dim] -> [bs, 2]."""
+        if pose.shape[-1] != self.pose_dim:
+            raise ValueError(f"pose dim {pose.shape[-1]} != {self.pose_dim} for "
+                             f"{self.pose_mode!r}")
+        h = F.relu(self.Dense_1(F.relu(self.Dense_0(pose))))
+        f = F.relu(self.Dense_2(torch.cat([pts_feature, h], dim=-1)))
+        return self.Dense_3(f)

@@ -21,10 +21,11 @@ Layout differences handled here:
 - torch BatchNorm ``weight/bias`` -> flax ``scale/bias`` params;
   ``running_mean/var`` -> the ``batch_stats`` collection.
 
-Only the ``pointnet2`` encoder and the pooled-feature heads are ported (as
-in ``models/posenet.py::build_model``); the EDM decoder head
-(``PoseDecoderNet``) is.  ``port_checkpoint_file`` writes the port's
-checkpoint format (``training/checkpoints.py``).
+Every encoder of ``pts_encoder`` (``pointnet``, ``pointnet2``,
+``pointnet_and_pointnet2``), the pooled-feature heads, the per-point heads
+(``per_point_feature``) and the EDM decoder head (``PoseDecoderNet``) are
+ported.  ``port_checkpoint_file`` writes the port's checkpoint format
+(``training/checkpoints.py``).
 """
 
 from __future__ import annotations
@@ -90,20 +91,41 @@ _TAIL_NAMES = {
 }
 
 
-def port_trunk(sd: Dict[str, Any], prefix: str,
-               regression_head: str = "Rx_Ry_and_T") -> Tuple[Dict[str, Any], Dict[str, Any]]:
+def port_trunk(sd: Dict[str, Any], prefix: str, regression_head: str = "Rx_Ry_and_T",
+               per_point_feature: bool = False,
+               pts_feat_dim: int = 1280) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """A PoseScoreNet / PoseEnergyNet slice (torch key prefix ``prefix``,
     e.g. ``"pose_score_net."``) -> the flax ``PoseTrunk`` (params,
-    batch_stats).  The pooled-feature heads only: the per-point heads are
-    not ported."""
+    batch_stats).  ``per_point_feature``: the RotHead / TransHead tails
+    (``decoder_head/rot_head.py:8-35``), whose conv1 kernel is split into
+    [pts, t, pose] row blocks, concat order ``scorenet.py:202``."""
     params: Dict[str, Any] = {
         "t_fourier": {"W": _np(sd[f"{prefix}t_encoder.0.W"])},
         "t_dense": _dense(sd, f"{prefix}t_encoder.1"),
         "pose_dense_0": _dense(sd, f"{prefix}pose_encoder.0"),
         "pose_dense_1": _dense(sd, f"{prefix}pose_encoder.2"),
     }
-    params.update(_port_tails(sd, prefix, _TAIL_NAMES[regression_head]))
-    return params, {}
+    specs = _TAIL_NAMES[regression_head]
+    if not per_point_feature:
+        params.update(_port_tails(sd, prefix, specs))
+        return params, {}
+    if regression_head != "Rx_Ry_and_T":
+        raise NotImplementedError("per_point_feature requires Rx_Ry_and_T")
+    stats: Dict[str, Any] = {}
+    for flax_name, torch_name, _ in specs:
+        base = f"{prefix}{torch_name}"
+        w1 = _dense(sd, f"{base}.conv1")["kernel"]  # [f, 1024]
+        tail = {"feat_kernel": np.ascontiguousarray(w1[:pts_feat_dim]),
+                "t_kernel": np.ascontiguousarray(w1[pts_feat_dim:pts_feat_dim + 128]),
+                "pose_kernel": np.ascontiguousarray(w1[pts_feat_dim + 128:]),
+                "bias1": _np(sd[f"{base}.conv1.bias"])}
+        tail_stats = {}
+        for j in (1, 2, 3):
+            tail[f"bn{j}"], tail_stats[f"bn{j}"] = _bn(sd, f"{base}.bn{j}")
+        for j in (2, 3, 4):
+            tail[f"conv{j}"] = _dense(sd, f"{base}.conv{j}")
+        params[flax_name], stats[flax_name] = tail, tail_stats
+    return params, stats
 
 
 def _port_tails(sd: Dict[str, Any], prefix: str, specs) -> Dict[str, Any]:
@@ -193,30 +215,56 @@ def port_pointnet2(sd: Dict[str, Any], prefix: str) -> Tuple[Dict[str, Any], Dic
     return params, stats
 
 
+def port_pointnet(sd: Dict[str, Any], prefix: str) -> Dict[str, Any]:
+    """A torch ``PointNetfeat`` slice (``pts_encoder/pointnets.py:83-123``)
+    -> the flax ``PointNetfeat`` params (no BatchNorm in either): the
+    transformer's ``conv1-3``/``fc1-3`` -> ``stn/Dense_0-5``, the feature
+    convs ``conv1-4`` -> ``Dense_0-3``."""
+    stn = {f"Dense_{i}": _dense(sd, f"{prefix}stn.{src}")
+           for i, src in enumerate(("conv1", "conv2", "conv3", "fc1", "fc2", "fc3"))}
+    params: Dict[str, Any] = {"stn": stn}
+    for i in range(4):
+        params[f"Dense_{i}"] = _dense(sd, f"{prefix}conv{i + 1}")
+    return params
+
+
 # ---------------------------------------------------------------------------
 # full model
 # ---------------------------------------------------------------------------
 
 def port_gf_state_dict(sd: Dict[str, Any], variables: Dict[str, Any],
                        pts_encoder: str = "pointnet2", regression_head: str = "Rx_Ry_and_T",
+                       per_point_feature: bool = False, pts_feat_dim: int = 1280,
                        decoder_head: bool = False) -> Dict[str, Any]:
     """A full torch ``GFObjectPose`` state_dict -> ``{"params", "batch_stats"}``
     in the flax layout of the template ``variables`` (same structure as
     ``genpose_tpu/utils/torch_port.py::port_gf_state_dict``).  Score and
     energy models alike (the reference names the head ``pose_score_net`` in
-    both modes, ``posenet.py:59-67``); ``decoder_head`` for an EDM score
-    model.  Raises on a missing key (KeyError) or on any key or shape that
-    differs from the template (ValueError)."""
-    if pts_encoder != "pointnet2":
-        raise NotImplementedError(f"pts_encoder={pts_encoder!r} is not ported")
+    both modes, ``posenet.py:59-67``); the encoders under the reference's
+    names (``pts_encoder``, or ``pts_pointnet_encoder``,
+    ``pts_pointnet2_encoder`` and ``fusion_layer``); ``per_point_feature``
+    for per-point heads, ``decoder_head`` for an EDM score model.  Raises
+    on a missing key (KeyError) or on any key or shape that differs from
+    the template (ValueError)."""
     sd = {k: _np(v) for k, v in sd.items() if not k.endswith("num_batches_tracked")}
-    enc_p, enc_s = port_pointnet2(sd, "pts_encoder.")
-    params: Dict[str, Any] = {"encoder": enc_p}
-    stats: Dict[str, Any] = {"encoder": enc_s}
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    if pts_encoder == "pointnet2":
+        params["encoder"], stats["encoder"] = port_pointnet2(sd, "pts_encoder.")
+    elif pts_encoder == "pointnet":
+        params["encoder"] = port_pointnet(sd, "pts_encoder.")
+    elif pts_encoder == "pointnet_and_pointnet2":
+        params["encoder_pn"] = port_pointnet(sd, "pts_pointnet_encoder.")
+        params["encoder_pn2"], stats["encoder_pn2"] = port_pointnet2(sd, "pts_pointnet2_encoder.")
+        params["fusion_layer"] = _dense(sd, "fusion_layer")
+    else:
+        raise NotImplementedError(pts_encoder)
     if decoder_head:
         params["head"] = port_decoder(sd, "pose_score_net.", regression_head=regression_head)
     else:
-        trunk_p, trunk_s = port_trunk(sd, "pose_score_net.", regression_head=regression_head)
+        trunk_p, trunk_s = port_trunk(sd, "pose_score_net.", regression_head=regression_head,
+                                      per_point_feature=per_point_feature,
+                                      pts_feat_dim=pts_feat_dim)
         params["head"] = {"trunk": trunk_p}
         if trunk_s:
             stats["head"] = {"trunk": trunk_s}
@@ -230,15 +278,20 @@ def port_gf_state_dict(sd: Dict[str, Any], variables: Dict[str, Any],
     return out
 
 
-def port_state_dict(sd: Dict[str, Any], model, regression_head: str = "Rx_Ry_and_T"):
+def port_state_dict(sd: Dict[str, Any], model, regression_head: str = "Rx_Ry_and_T",
+                    per_point_feature: bool = False, pts_feat_dim: int = 1280):
     """An upstream ``GFObjectPose`` state_dict -> the port's ``state_dict`` for
-    ``model`` (a port ``GFObjectPose``, which is the template):
+    ``model`` (a port ``GFObjectPose``, which is the template; with
+    ``per_point_feature``, one whose head is a per-point ``PoseScoreNet``):
     ``from_jax_variables(port_gf_state_dict(...))``."""
     from genpose_tpu_torch.utils.weights import from_jax_variables, to_jax_variables
 
     params, stats = to_jax_variables(model)
     variables = port_gf_state_dict(sd, {"params": params, "batch_stats": stats},
+                                   pts_encoder=model.pts_encoder,
                                    regression_head=regression_head,
+                                   per_point_feature=per_point_feature,
+                                   pts_feat_dim=pts_feat_dim,
                                    decoder_head=model.decoder_head)
     return from_jax_variables(variables["params"], variables.get("batch_stats", {}))
 

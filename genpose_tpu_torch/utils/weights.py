@@ -168,14 +168,18 @@ def init_params_(model: nn.Module, seed: int) -> nn.Module:
     - Linear: normal, std 1/sqrt(fan_in) (lecun), zero bias;
     - BatchNorm: weight 1, bias 0, running mean 0, running var 1;
     - Fourier ``W``: normal x scale;
-    - tail first layers: normal, std 1/sqrt(concatenated fan-in);
-    - tail outputs: zero, as the reference zero-initialises them.
+    - tail first layers (``PerPointTail``'s conv1 too): normal, std
+      1/sqrt(concatenated fan-in);
+    - fusion tail outputs: zero, as the reference zero-initialises them;
+    - a PointNet spatial transformer's last layer: zero (the identity).
     """
     from genpose_tpu_torch.models.layers import (
         FusedTails,
         GaussianFourierProjection,
+        PerPointTail,
         SplitTail,
     )
+    from genpose_tpu_torch.models.pointnet import STNkd
 
     g = torch.Generator().manual_seed(seed)
 
@@ -197,6 +201,11 @@ def init_params_(model: nn.Module, seed: int) -> nn.Module:
                 normal_(k, 1.0 / math.sqrt(fan_in))
             for z in (m.bias, m.out_kernel, m.out_bias):
                 z.zero_()
+        elif isinstance(m, PerPointTail):
+            fan_in = m.feat_kernel.shape[0] + m.t_kernel.shape[0] + m.pose_kernel.shape[0]
+            for k in (m.feat_kernel, m.t_kernel, m.pose_kernel):
+                normal_(k, 1.0 / math.sqrt(fan_in))
+            m.bias1.zero_()
     # after the Linear pass above, so the zeros stick
     for m in model.modules():
         if isinstance(m, SplitTail):
@@ -205,6 +214,9 @@ def init_params_(model: nn.Module, seed: int) -> nn.Module:
             normal_(m.dyn.weight, 1.0 / math.sqrt(fan_in))
             m.out.weight.zero_()
             m.out.bias.zero_()
+        elif isinstance(m, STNkd):
+            m.Dense_5.weight.zero_()
+            m.Dense_5.bias.zero_()
     return model
 
 

@@ -10,7 +10,11 @@
     fixture back to the weights it came from (which shows the fixture is in
     the released layout), then the port's porter must give exactly
     ``from_jax_variables(port_gf_state_dict(...))``, for a VE score model,
-    an IP energy model and an EDM decoder score model; through
+    an IP energy model, an EDM decoder score model, a PointNet score model,
+    a PointNet + PointNet++ energy model and a score model with per-point
+    heads (``per_point_feature``, whose tree the JAX composite model does
+    not build: the JAX agent's encoder beside a per-point
+    ``PoseScoreNet``'s trunk, and the port's model with such a head); through
     ``genpose_tpu_torch/tools/port_torch_ckpt.py`` and
     ``InferencePipeline(score_ckpt=, energy_ckpt=)`` the pipeline equals the
     one filled by ``load_jax`` bit for bit.
@@ -184,23 +188,62 @@ def test_orbax_route_resumes_as_jax(orbax_route):
 # (b) released .pth -> port
 # ---------------------------------------------------------------------------
 
-MODELS = {"ve_score": ("ve", "score"), "ip_energy": ("ve", "energy"),
-          "edm_decoder_score": ("edm", "score")}
+MODELS = {"ve_score": ("ve", "score", {}), "ip_energy": ("ve", "energy", {}),
+          "edm_decoder_score": ("edm", "score", {}),
+          "pointnet_score": ("ve", "score", {"pts_encoder": "pointnet"}),
+          "pointnet_and_pointnet2_energy": ("ve", "energy",
+                                            {"pts_encoder": "pointnet_and_pointnet2"}),
+          "per_point_score": ("ve", "score", {"per_point_feature": True})}
+
+
+def _per_point_head(params, batch_stats, seed):
+    """A per-point ``PoseScoreNet``'s variables (JAX init, perturbed) in
+    place of the head of a JAX model's (params, batch_stats)."""
+    from genpose_tpu.diffusion.sde import init_sde as jax_init_sde
+    from genpose_tpu.models.scorenet import PoseScoreNet as JaxScoreNet
+
+    rng = np.random.default_rng(seed)
+    net = JaxScoreNet(marginal_prob_fn=jax_init_sde("ve").marginal_prob, per_point_feature=True)
+    v = net.init(jax.random.PRNGKey(seed), jnp.zeros((2, 8, 1280)), jnp.zeros((2, 9)),
+                 jnp.full((2, 1), 0.5))
+    head = jax.tree.map(lambda p: np.asarray(p) + 0.01 * rng.normal(size=p.shape)
+                        .astype(np.float32), jax.device_get(v["params"]))
+    stats = jax.tree.map(lambda s: np.asarray(s) * rng.uniform(0.5, 1.5, size=s.shape)
+                         .astype(np.float32), jax.device_get(v["batch_stats"]))
+    return {**params, "head": head}, {**batch_stats, "head": stats}
 
 
 @pytest.fixture(scope="module")
 def upstream():
-    """Per model: the JAX agent's weights, their released-layout state_dict
-    and the port agent (CPU) of the same configuration."""
+    """Per model: its weights in the flax layout (the JAX agent's, or for
+    the per-point model the JAX agent's encoder and a per-point head), their
+    released-layout state_dict and the port agent (CPU) of the same
+    configuration."""
+    from genpose_tpu_torch.diffusion.sde import init_sde
+    from genpose_tpu_torch.models.scorenet import PoseScoreNet
+
     out = {}
-    for i, (name, (sde, mode)) in enumerate(MODELS.items()):
-        jag = jax_agent(Config(num_points=N_PTS, sde_mode=sde), mode, seed=30 + i)
+    for i, (name, (sde, mode, kw)) in enumerate(MODELS.items()):
+        per_point = kw.get("per_point_feature", False)
+        enc = {k: v for k, v in kw.items() if k != "per_point_feature"}
+        jag = jax_agent(Config(num_points=N_PTS, sde_mode=sde, **enc), mode, seed=30 + i)
         st = jax.device_get(jag.state)
+        params, stats = st.params, st.batch_stats
         decoder = sde == "edm" and mode == "score"
-        sd = upstream_state_dict(st.params, st.batch_stats, decoder_head=decoder)
-        tag = PoseAgent(TorchConfig(num_points=N_PTS, sde_mode=sde), mode, device="cpu")
-        out[name] = dict(jag=jag, st=st, sd=sd, tag=tag, decoder=decoder)
+        tag = PoseAgent(TorchConfig(num_points=N_PTS, sde_mode=sde, **enc), mode, device="cpu")
+        if per_point:
+            params, stats = _per_point_head(params, stats, seed=40 + i)
+            tag.model.head = PoseScoreNet(init_sde(sde).marginal_prob, per_point_feature=True)
+        sd = upstream_state_dict(params, stats, decoder_head=decoder)
+        out[name] = dict(params=params, stats=stats, sd=sd, tag=tag, decoder=decoder,
+                         per_point=per_point, pts_encoder=enc.get("pts_encoder", "pointnet2"))
     return out
+
+
+def _jax_ported(u):
+    return jax_port_gf_state_dict(u["sd"], {"params": u["params"], "batch_stats": u["stats"]},
+                                  pts_encoder=u["pts_encoder"],
+                                  per_point_feature=u["per_point"], decoder_head=u["decoder"])
 
 
 @pytest.mark.parametrize("name", list(MODELS))
@@ -208,11 +251,11 @@ def test_upstream_fixture_is_what_the_jax_porter_reads(upstream, name):
     """JAX's ``port_gf_state_dict`` takes the fixture back to the exact JAX
     weights it was made from."""
     u = upstream[name]
-    back = jax_port_gf_state_dict(u["sd"], u["jag"].state.variables,
-                                  decoder_head=u["decoder"])
-    _assert_same_tree(back["params"], u["st"].params)
-    _assert_same_tree(back.get("batch_stats", {}), u["st"].batch_stats)
+    back = _jax_ported(u)
+    _assert_same_tree(back["params"], u["params"])
+    _assert_same_tree(back.get("batch_stats", {}), u["stats"])
     assert u["decoder"] == ("sigma_encoder" in " ".join(u["sd"]))
+    assert u["per_point"] == ("pose_score_net.fusion_tail_rot_x.conv1.bias" in u["sd"])
 
 
 @pytest.mark.parametrize("name", list(MODELS))
@@ -220,10 +263,9 @@ def test_port_porter_equals_jax_porter_composed(upstream, name):
     """The port's porter = ``from_jax_variables ∘ port_gf_state_dict``,
     exactly, and the port's model loads it."""
     u = upstream[name]
-    back = jax_port_gf_state_dict(u["sd"], u["jag"].state.variables,
-                                  decoder_head=u["decoder"])
+    back = _jax_ported(u)
     want = from_jax_variables(back["params"], back.get("batch_stats", {}))
-    got = torch_port.port_state_dict(u["sd"], u["tag"].model)
+    got = torch_port.port_state_dict(u["sd"], u["tag"].model, per_point_feature=u["per_point"])
     _assert_same_sd(got, want)
     u["tag"].model.load_state_dict(got)
 
@@ -264,8 +306,7 @@ def test_released_pth_serves_as_load_jax(upstream, tmp_path, one_torch_thread):
                             energy_ckpt=paths["energy"])
     want = InferencePipeline(cfg, device="cpu")
     for agent, name in ((want.score_agent, "ve_score"), (want.energy_agent, "ip_energy")):
-        st = upstream[name]["st"]
-        agent.load_jax(st.params, st.batch_stats)
+        agent.load_jax(upstream[name]["params"], upstream[name]["stats"])
     pts = (np.random.default_rng(40).normal(size=(3, N_PTS, 3)) * 0.1).astype(np.float32)
     a, b = got.predict(pts), want.predict(pts)
     assert a.keys() == b.keys()

@@ -135,13 +135,47 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_unported_configurations_raise():
+    """Every encoder, stage config and pose mode of the JAX config is ported
+    (``test_every_config_value_builds``); a value neither package has still
+    raises, as does ``Rx_Ry_and_T`` over a pose mode other than
+    ``rot_matrix`` (as in JAX)."""
     from genpose_tpu_torch.models.posenet import build_model
 
     Config = torch_config.Config
-    for cfg in (Config(pointnet2_params="full"), Config(pts_encoder="pointnet"),
-                Config(pose_mode="euler_xyz", regression_head="RT")):
-        with pytest.raises(NotImplementedError):
+    for cfg in (Config(pointnet2_params="huge"), Config(pts_encoder="pointnet3"),
+                Config(pose_mode="euler_zyz", regression_head="RT"),
+                Config(regression_head="R_then_T"), Config(pose_mode="euler_xyz")):
+        with pytest.raises((NotImplementedError, KeyError)):
             build_model(cfg, "score", device="cpu")
+
+
+@pytest.mark.parametrize("flag,value", [
+    *[("pts_encoder", v) for v in ("pointnet", "pointnet2", "pointnet_and_pointnet2")],
+    *[("pointnet2_params", v) for v in ("full", "light", "lighter", "dense")],
+    *[("pose_mode", v) for v in ("quat_wxyz", "quat_xyzw", "euler_xyz", "euler_xyz_sx_cx",
+                                 "rot_matrix")]])
+def test_every_config_value_builds(flag, value):
+    """Each value of ``pts_encoder``, ``pointnet2_params`` and ``pose_mode``
+    that the JAX config takes builds a score and an energy model on the CPU
+    (the pose modes with the ``R_and_T`` head, which every mode allows) whose
+    feature and head outputs have the expected shapes."""
+    from genpose_tpu_torch.models.posenet import build_model
+    from genpose_tpu_torch.ops.pose import get_pose_dim
+
+    kw = {flag: value, "num_points": 64}
+    if flag == "pose_mode":
+        kw["regression_head"] = "R_and_T"
+    cfg = torch_config.Config(**kw)
+    dim = get_pose_dim(cfg.pose_mode)
+    pts = torch.randn(2, 64, 3, generator=torch.Generator().manual_seed(0)) * 0.1
+    for mode in ("score", "energy"):
+        model = build_model(cfg, mode, device="cpu")
+        with torch.no_grad():
+            projs = model.precompute_head(model.encode_pts(pts))
+            pose, t = torch.zeros(2, dim), torch.full((2, 1), 0.5)
+            out = (model.score_with(projs, pose, t) if mode == "score"
+                   else model.energy_with(projs, pose, t))
+        assert out.shape == ((2, dim) if mode == "score" else (2, 2))
 
 
 @pytest.mark.parametrize("ask", ["pc", "edm", "return_process", "likelihood"])

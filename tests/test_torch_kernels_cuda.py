@@ -198,3 +198,35 @@ def test_dispatchers_launch_the_kernels(dev):
     assert (fps_mod.launches - f0, bq_mod.launches - b0, fused_mod.launches - u0) == (1, 1, 1)
     pc.ball_query(0.1, 8, xyz, pc.gather_points(xyz, idx))
     assert bq_mod.launches - b0 == 2
+
+
+@pytest.mark.parametrize("B", [64, 192])
+@pytest.mark.parametrize("duplicates", [False, True], ids=["distinct", "tiled"])
+@pytest.mark.parametrize("config", ["full", "lighter", "dense", "msg"])
+def test_stage_chains_of_every_config_equal_plain(dev, config, duplicates, B):
+    """The FPS and ball-query launches of each PointNet++ configuration's
+    stage chain (``Pointnet2ClsMSG``'s ``full``, ``lighter``, ``dense`` and
+    ``Pointnet2MSG``'s ``MSG_CFG``) at N = 1024, the serving batch (64) and
+    the training batch (192): 1024 -> 512 -> 256 -> 128 (-> 64) centres,
+    one launch per stage for all its radii (``lighter``'s first stage is
+    r = 0.01 with nsample 64).  ``tiled`` clouds repeat 200 points, as
+    ``sample_points`` tiles a small object, so distances tie exactly."""
+    from genpose_tpu_torch.models.pointnet2 import CLS_MSG_CONFIGS, MSG_CFG
+
+    cfg = MSG_CFG if config == "msg" else CLS_MSG_CONFIGS[config]
+    xyz = _cloud(dev, B, 200 if duplicates else 1024, seed=B + len(config))
+    if duplicates:
+        xyz = xyz.repeat(1, 6, 1)[:, :1024].contiguous()
+    stages = [k for k, m in enumerate(cfg["NPOINTS"]) if m is not None]
+    f0, b0 = fps_mod.launches, bq_mod.launches
+    for k in stages:
+        idx = fps_mod.fps_cuda(xyz, cfg["NPOINTS"][k])
+        assert torch.equal(idx, pc.farthest_point_sample_ref(xyz, cfg["NPOINTS"][k])), k
+        centers = pc.gather_points(xyz, idx)
+        radii, nsamples = cfg["RADIUS"][k], cfg["NSAMPLE"][k]
+        got = bq_mod.ball_query_cuda(radii, nsamples, xyz, centers)
+        for g, w in zip(got, pc.ball_query_msg_ref(radii, nsamples, xyz, centers)):
+            assert torch.equal(g, w), (k, radii)
+        xyz = centers
+    torch.cuda.synchronize()
+    assert (fps_mod.launches - f0, bq_mod.launches - b0) == (len(stages), len(stages))
