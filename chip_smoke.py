@@ -133,10 +133,15 @@ non-zero and prints no result line):
    process loader); and
    on Real/test ``--eval`` (repeat CLI_EVAL_REPEAT), ``--results_path``,
    ``--pred`` and ``--likelihood`` (CLI_LIKELIHOOD_STEPS steps) with
-   ``--max_eval_num 0``.  Checks: finite logged losses, every artifact of
-   each flow, FPS 3 + ball query 3 in every score step, energy iteration,
-   eval-epoch and inference sampling, energy and likelihood call, and no
-   launch outside them;
+   ``--max_eval_num 0``; last, one more score epoch with ``--save_video
+   true`` (its eval epoch samples with the trajectory, CLI_VIDEO_STEPS Heun
+   steps, and writes ``res_grid.png`` and each sample's diffusion frames as
+   PNGs: the frames counted, the drawing's host seconds printed).  Checks:
+   finite logged losses, every artifact of each flow (``--pred``'s SO(3)
+   images or the line saying why they were skipped: the card's machine has
+   no matplotlib), FPS 3 + ball query 3 in every score step, energy
+   iteration, eval-epoch and inference sampling, energy and likelihood
+   call, and no launch outside them;
 16. every other encoder, PointNet++ stage config and pose mode of the JAX
    config (NEW_CONFIGS: ``pts_encoder`` ``pointnet`` and
    ``pointnet_and_pointnet2``, ``pointnet2_params`` ``full``, ``lighter``
@@ -152,19 +157,34 @@ non-zero and prints no result line):
    as the encoder has stages) and the phase-5 check against the CPU; and
    NEW_TRAIN_STEPS score steps at bs=192 for ``pointnet_and_pointnet2``
    and ``full`` (seconds per step beside phase 7's, peak memory, launches).
+17. every sampler through the frozen programs (``freeze()``) at the
+   serving width: a PC-500 (VE) and an EDM-18 request in float32 and
+   bfloat16, eagerly and then frozen from the same seed (each after a
+   warm-up request): bit for bit, 2 frozen dispatches and FPS 3 + ball
+   query 3 a request; seconds and poses/s beside phase 14's eager seconds,
+   the frozen request's busy share, device ms and kernels, the warm-up and
+   capture seconds and the graph pool's device memory; a Heun-500 and a
+   PC-500 request with the trajectory (``return_process``) and the PF-ODE
+   likelihood (LIKELIHOOD_STEPS steps) of 64 poses, eagerly and frozen, bit
+   for bit; ``evaluation_single`` stages 2-3 on phase 9's tree under
+   ``--sampler_mode pc`` with both agents frozen as ``main`` freezes them,
+   and ``main_tracking`` on phase 10's frames under ``--sde_mode edm
+   --sampler_mode edm``, each against its eager port run (bit for bit,
+   equal metrics), with stage-2 poses/s and frames/s.
 
 Checkpoints and metrics of phase 7, the trees and results of phases 9-12,
 the converted checkpoints of phase 14 and the tree and results of phase 15
 go under ``build/chip_smoke/`` in the checkout.  The last lines are the
 training numbers, the evaluation and tracking numbers, the frozen arms, the
 bfloat16 arms, the checkpoint and sampler numbers, the training CLI's
-numbers, phase 16's numbers, the card line, one JSON line describing each
-kernel, and ``{"ok": true, "device": {...}}``.
+numbers, phase 16's numbers, phase 17's numbers, the card line, one JSON
+line describing each kernel, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -1311,15 +1331,17 @@ def evaluation_path(dev, card):
             "near_gt_10d5cm": mean_map}, nocs, (score, energy), ctx
 
 
-def tracking_path(dev, card, nocs, agents, frozen_arm=False, compute_dtype="float32"):
+def tracking_path(dev, card, nocs, agents, frozen_arm=False, compute_dtype="float32",
+                  **overrides):
     """Phase 10: ``evaluation_tracking.main_tracking`` (T0=0.15) at full width
     on the phase-9 tree, the launch counts and the pooled poses read around
     each frame; then one frame profiled.  ``main_tracking`` freezes its
     agents: phase 10 is the eager arm, with ``freeze`` turned into a no-op on
     the two agents for the run; phase 12 runs the frozen arm
     (``frozen_arm``), as a user calls it, and phase 13 the same with
-    ``--compute_dtype bfloat16`` agents.  Returns the summary, the pooled
-    poses of every frame and the metrics."""
+    ``--compute_dtype bfloat16`` agents; phase 17 runs both arms under the
+    EDM sampler (``overrides`` of the config).  Returns the summary, the
+    pooled poses of every frame and the metrics."""
     from genpose_tpu_torch.data.synthetic import make_synthetic_mrcnn_results
     from genpose_tpu_torch.ops import ball_query_cuda, fps_cuda
     from genpose_tpu_torch.runners import evaluation_single as ev
@@ -1328,10 +1350,11 @@ def tracking_path(dev, card, nocs, agents, frozen_arm=False, compute_dtype="floa
     from genpose_tpu_torch.utils.tracking import add_noise_to_RT, srt_to_pose9d
 
     arm = ("frozen" if frozen_arm else "eager") + (
-        "" if compute_dtype == "float32" else f" {compute_dtype}")
+        "" if compute_dtype == "float32" else f" {compute_dtype}") + (
+        f" {overrides['sampler_mode'][0]}" if "sampler_mode" in overrides else "")
     result_dir = str(OUT_DIR / "eval" / f"tracking_{arm.replace(' ', '_')}")
     make_synthetic_mrcnn_results(nocs, result_dir, "real_test", tracking=True)
-    cfg = eval_config(nocs, result_dir, T0=TRACK_T0, compute_dtype=compute_dtype)
+    cfg = eval_config(nocs, result_dir, T0=TRACK_T0, compute_dtype=compute_dtype, **overrides)
     score, energy = agents
     frames, poses, real = [], [], et.track_frame
 
@@ -1391,7 +1414,8 @@ def tracking_path(dev, card, nocs, agents, frozen_arm=False, compute_dtype="floa
     frame_s = [f["s"] for f in frames]
     print(f"tracking {arm} (Real/test, {len(frames)} frames, "
           f"{sum(f['objects'] for f in frames)} objects; N={N_POINTS}, K={K}, T0={TRACK_T0}, "
-          f"{cfg.sampling_steps} Heun steps): {len(frames) / wall:.3f} frames/s ({wall:.3f} s; "
+          f"sde {cfg.sde_mode}, {cfg.sampling_steps} steps of {cfg.sampler_mode[0]}): "
+          f"{len(frames) / wall:.3f} frames/s ({wall:.3f} s; "
           f"a frame's device chain median {np.median(frame_s):.4f} s); launches per frame FPS 3 "
           f"+ ball query 3 ({launches}), frozen dispatches {want_dispatches} a frame; kernels "
           f"held against their plain versions at {held}; {card}", flush=True)
@@ -2163,7 +2187,12 @@ def new_sampler_cpu_gpu_agreement(dev, card):
 # resampling gives 384 + 3 x 32 = 480 indices, two full batches of 192 an epoch
 CLI_CAMERA_SCENES, CLI_REAL_SCENES = 384, 32
 CLI_LIKELIHOOD_STEPS = 50  # phase 15's likelihood flow; 500 is the config default
-CLI_EVAL_REPEAT = 10  # phase 15's --eval flow; 20 (the config default) until phase 16 came
+CLI_EVAL_REPEAT = 5  # phase 15's --eval flow; the config default is 20 (cut to 10 when phase
+# 16 came and to 5 when phase 17 came, to keep the script near half its time limit)
+# phase 15's --save_video epoch samples this many Heun steps (the config's 500
+# would draw 125 frames a sample: ~20 s of splatting and ~16 s of PNG
+# writing a mode on the host); its frames are the trajectory's last half
+CLI_VIDEO_STEPS = 100
 
 
 @contextlib.contextmanager
@@ -2521,9 +2550,12 @@ def training_cli_path(dev, card, in_memory_step_s: float):
     flows["results_path_s"] = time.perf_counter() - t0
     if results_pkl.read_bytes() != before or not (res_dir / "average_results.pkl").exists():
         raise AssertionError("--results_path: the input changed or average_results.pkl is missing")
-    flows["pred"] = run_cli(["--agent_type", "energy_with_ranking", "--pretrained_score_model_path",
-                             str(last_ckpt), "--pred", "true", "--log_dir",
-                             "cli_energy"] + test, out)
+    printed = io.StringIO()  # the drawing's line, when the SO(3) images are skipped
+    with contextlib.redirect_stdout(printed):
+        flows["pred"] = run_cli(["--agent_type", "energy_with_ranking",
+                                 "--pretrained_score_model_path", str(last_ckpt), "--pred", "true",
+                                 "--log_dir", "cli_energy"] + test, out)
+    sys.stdout.write(printed.getvalue())
     flows["likelihood"] = run_cli(["--agent_type", "score", "--likelihood", "true",
                                    "--sampling_steps", str(CLI_LIKELIHOOD_STEPS), "--log_dir",
                                    "cli_score"] + test, out)
@@ -2555,13 +2587,70 @@ def training_cli_path(dev, card, in_memory_step_s: float):
         "likelihood": {"wall_s": flows["likelihood"]["wall_s"], "steps": CLI_LIKELIHOOD_STEPS,
                        "launches": flows["likelihood"]["launches"],
                        "mean_bits": lik["mean_bits"]}}
+    pred_dir = Path(out) / "predictions" / "cli_energy"
+    so3 = sorted(p.name for p in pred_dir.glob("so3_distribution_*.png"))
+    skipped = [line for line in printed.getvalue().splitlines()
+               if line.startswith("visualization skipped")]
+    if len(so3) != min(n_obj, 8) and not skipped:
+        raise AssertionError(f"--pred wrote {so3} and printed no skipped drawing")
+    result["flows"]["pred"].update(so3_images=len(so3), drawing=skipped or "drawn")
     print(f"training CLI flows on Real/test ({n_obj} objects, one batch): --eval (repeat "
           f"{CLI_EVAL_REPEAT}, Heun-{defaults.sampling_steps}) {flows['eval']['wall_s']:.3f} s, launches {flows['eval']['launches']}; "
           f"--results_path {flows['results_path_s']:.3f} s; --pred (K={repeat}, energy ranking) "
-          f"{flows['pred']['wall_s']:.3f} s, launches {flows['pred']['launches']}; --likelihood "
+          f"{flows['pred']['wall_s']:.3f} s, launches {flows['pred']['launches']}, SO(3) images "
+          f"{len(so3)} ({skipped[0] if skipped else 'drawn'}); --likelihood "
           f"({CLI_LIKELIHOOD_STEPS} steps) {flows['likelihood']['wall_s']:.3f} s, launches "
           f"{flows['likelihood']['launches']}; every artifact written; {card}", flush=True)
+    result["video"] = video_epoch(out, common, str(ckpt_dir), card)
     return result
+
+
+def video_epoch(out: str, common, ckpt_dir: str, card: str):
+    """Phase 15, last: one more score epoch by ``--use_pretrain`` with
+    ``--save_video true``: its eval epoch samples the first train and val
+    batch with their trajectories (Heun, CLI_VIDEO_STEPS steps) and writes
+    each one's result grid and the diffusion frames of its first (at most
+    16) samples as PNGs.  Prints the frames written and the seconds the drawing
+    took (host only)."""
+    from genpose_tpu_torch.runners import trainer
+    from genpose_tpu_torch.training.checkpoints import load_clock
+
+    epoch = load_clock(ckpt_dir)["epoch"] + 1  # the eval epoch's number, after the epoch
+    drawing, real = [], trainer._visualize_eval
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        real(*args, **kwargs)
+        drawing.append(time.perf_counter() - t0)
+
+    trainer._visualize_eval = timed
+    try:
+        run = run_cli(["--agent_type", "score", "--n_epochs", str(epoch - 1), "--eval_freq", "1",
+                       "--use_pretrain", "true", "--save_video", "true", "--sampling_steps",
+                       str(CLI_VIDEO_STEPS), "--loader_mode", "process", "--log_dir",
+                       "cli_score"] + common, out)
+    finally:
+        trainer._visualize_eval = real
+    frames = {}
+    for mode in ("train", "val"):
+        d = Path(out) / "logs" / "cli_score" / f"video_epoch{epoch}_{mode}"
+        examples = sorted(d.glob("example_*"))
+        counts = {len(list(e.glob("frame_*.png"))) for e in examples}
+        # Heun's trajectory holds CLI_VIDEO_STEPS states, the frames its last half
+        if (not (d / "res_grid.png").exists() or not 1 <= len(examples) <= 16
+                or counts != {CLI_VIDEO_STEPS // 2}):
+            raise AssertionError(f"--save_video {mode}: {len(examples)} examples, frame counts "
+                                 f"{counts}, res_grid.png {(d / 'res_grid.png').exists()}")
+        frames[mode] = {"samples": len(examples), "frames": len(examples) * CLI_VIDEO_STEPS // 2}
+    samples = [c["s"] for c in run["calls"]["sample"]]
+    print(f"training CLI --save_video epoch (Heun-{CLI_VIDEO_STEPS} with its trajectory in "
+          f"the eval epoch): PNG frames written {frames} ({CLI_VIDEO_STEPS // 2} a sample, at "
+          f"most 16 samples a mode) + res_grid.png each; the drawing took "
+          f"{[round(x, 3) for x in drawing]} s (host), the two samplings "
+          f"{[round(x, 4) for x in samples]} s; wall {run['wall_s']:.3f} s; launches "
+          f"{run['launches']}; {card}", flush=True)
+    return {"frames": frames, "drawing_s": drawing, "sample_s": samples,
+            "wall_s": run["wall_s"], "launches": run["launches"]}
 
 
 # phase 16: every encoder, PointNet++ stage config and pose mode of the JAX
@@ -2800,6 +2889,241 @@ def new_configurations(dev, card, pts: np.ndarray, light_step_s: float):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: every sampler through the frozen programs
+# ---------------------------------------------------------------------------
+
+
+def _equal_or_fail(label: str, got: dict, want: dict) -> str:
+    """Hold frozen results to eager ones bit for bit."""
+    for k in want:
+        if not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"{label}: {k} frozen != eager, max |a-b|/(1+|b|) "
+                                 f"{_scaled_diff(got[k], want[k])}")
+    return "bit for bit"
+
+
+def frozen_sampler_serving(dev, card, pts: np.ndarray, eager14: dict):
+    """Phase 17 (1): a full-width request under PC-500 (VE) and EDM-18, in
+    float32 and bfloat16, eagerly and then through ``freeze()`` from the
+    same generator seed (one warm-up request before each timed one): bit for
+    bit, 2 frozen dispatches and FPS 3 + ball query 3 a request; seconds,
+    poses/s, the frozen request's profile, the warm-up and capture seconds
+    and the device memory the frozen programs hold, beside phase 14's eager
+    seconds."""
+    from genpose_tpu_torch.training import frozen
+
+    result = {}
+    for name in ("pc", "edm"):
+        for dtype in ("float32", "bfloat16"):
+            arm = f"{name} {dtype}"
+            pipe = make_pipeline(dev, compute_dtype=dtype, **SAMPLER_ARMS[name]).warmup()
+            eager, eager_s, _ = drive(pipe, pts, f"{arm} eager")
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved0 = torch.cuda.memory_reserved()
+            t0 = time.perf_counter()
+            pipe.freeze().warmup()
+            freeze_s = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            held_mb = (torch.cuda.memory_reserved() - reserved0) / 2 ** 20
+            frozen.dispatches = 0
+            got, frozen_s, launches = drive(pipe, pts, f"{arm} frozen")
+            if frozen.dispatches != 2:
+                raise AssertionError(f"frozen {arm}: {frozen.dispatches} frozen dispatches, "
+                                     f"expected 2")
+            how = _equal_or_fail(f"frozen serving {arm}", got, eager)
+            prof = device_profile(
+                lambda: pipe.predict(pts, generator=torch.Generator(device=dev).manual_seed(1)),
+                f"serving {arm}, frozen request", cpu=False)
+            graphs = _graph_stats(pipe.score_agent, pipe.energy_agent)
+            phase14_s = eager14[name]["seconds"] if dtype == "float32" else None
+            result[f"{name}_{dtype}"] = {
+                "steps": pipe.cfg.sampling_steps, "eager_s": eager_s, "frozen_s": frozen_s,
+                "eager_poses_per_s": B / eager_s, "frozen_poses_per_s": B / frozen_s,
+                "phase14_eager_s": phase14_s, "frozen_profile": prof,
+                "freeze_and_warmup_s": freeze_s, "graphs": graphs, "held_mb": held_mb,
+                "launches": launches, "dispatches": 2, "agreement": how}
+            print(f"frozen {name} {dtype} (bs={B}, K={K}, N={N_POINTS}, sde "
+                  f"{pipe.cfg.sde_mode}, {pipe.cfg.sampling_steps} steps): eager "
+                  f"{eager_s:.4f} s = {B / eager_s:.2f} poses/s (phase 14 eager f32: "
+                  f"{'-' if phase14_s is None else f'{phase14_s:.4f} s'}), frozen "
+                  f"{frozen_s:.4f} s = {B / frozen_s:.2f} poses/s; frozen busy {prof['busy']}, "
+                  f"device ms {prof['device_ms']}, {prof['kernels']} device kernels; freeze + "
+                  f"warmup {freeze_s:.3f} s, programs {graphs}; graph pool {held_mb:.1f} MiB "
+                  f"(reserved); launches {launches}, frozen dispatches 2; frozen vs eager "
+                  f"{how}; {card}", flush=True)
+            del pipe
+            torch.cuda.empty_cache()
+    return result
+
+
+def frozen_trajectories_and_likelihood(dev, card, pts: np.ndarray):
+    """Phase 17 (2): at full width a Heun-500 and a PC-500 request with the
+    trajectory (``return_process``), eagerly and frozen from the same seed
+    (trajectory and poses bit for bit); then the PF-ODE likelihood of each
+    cloud's first hypothesis (LIKELIHOOD_STEPS steps, exact divergence)
+    eagerly and on the frozen agent, bit for bit.  FPS 3 + ball query 3 in
+    each call."""
+    from genpose_tpu_torch.ops import ball_query_cuda, fps_cuda
+    from genpose_tpu_torch.training import frozen
+
+    x = torch.from_numpy(pts).to(dev)
+    center = x.mean(dim=1)
+    batch = {"zero_mean_pts": x - center[:, None], "pts_center": center}
+
+    def timed(fn, label):
+        torch.cuda.synchronize()
+        fps_cuda.launches = ball_query_cuda.launches = frozen.dispatches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"fps": fps_cuda.launches, "ball_query": ball_query_cuda.launches}
+        if launches != {"fps": 3, "ball_query": 3}:
+            raise AssertionError(f"{label}: launches {launches}, expected 3 + 3")
+        return out, seconds, launches, frozen.dispatches
+
+    result = {}
+    for sampler, overrides in (("ode", {}), ("pc", SAMPLER_ARMS["pc"])):
+        agent = make_pipeline(dev, **overrides).score_agent
+
+        def request():
+            gen = torch.Generator(device=dev).manual_seed(1)
+            return agent.sample(batch, gen, repeat_num=K, sampler=sampler, num_steps=HEUN_STEPS,
+                                T0=EVAL_T0, return_process=True)
+
+        timed(request, f"{sampler} trajectory warm-up")
+        (eproc, epose), eager_s, _, _ = timed(request, f"{sampler} trajectory eager")
+        if sampler == "ode":  # the likelihood of each cloud's first hypothesis, eagerly
+            poses = epose[:, 0].clone()
+            poses[:, -3:] -= center
+
+            def likelihood():
+                return agent.likelihood(batch, poses, num_steps=LIKELIHOOD_STEPS)
+
+            (ez, ebits), lik_eager_s, _, _ = timed(likelihood, "likelihood eager")
+        agent.freeze()
+        t0 = time.perf_counter()
+        timed(request, f"{sampler} trajectory capture")
+        capture_s = time.perf_counter() - t0
+        (fproc, fpose), frozen_s, launches, dispatches = timed(request, f"{sampler} trajectory")
+        if eproc.shape != (B, K, HEUN_STEPS, 9) or dispatches != 1:
+            raise AssertionError(f"{sampler} trajectory: shape {tuple(eproc.shape)}, frozen "
+                                 f"dispatches {dispatches}")
+        how = _equal_or_fail(f"{sampler} trajectory", {"trajectory": fproc.cpu().numpy(),
+                                                       "poses": fpose.cpu().numpy()},
+                             {"trajectory": eproc.cpu().numpy(), "poses": epose.cpu().numpy()})
+        result[f"{sampler}_trajectory"] = {"eager_s": eager_s, "frozen_s": frozen_s,
+                                           "warmup_and_capture_s": capture_s,
+                                           "launches": launches, "agreement": how,
+                                           "bytes": eproc.numel() * 4}
+        print(f"frozen {sampler} request with its trajectory (bs={B}, K={K}, {HEUN_STEPS} "
+              f"steps, [{B}, {K}, {HEUN_STEPS}, 9] = {eproc.numel() * 4 / 2 ** 20:.1f} MiB): "
+              f"eager {eager_s:.4f} s, frozen {frozen_s:.4f} s (warm-up + capture "
+              f"{capture_s:.3f} s); launches {launches}; trajectory and poses {how}; {card}",
+              flush=True)
+        if sampler == "ode":
+            (fz, fbits), lik_frozen_s, lik_launches, lik_dispatches = timed(
+                likelihood, "likelihood frozen")
+            if lik_dispatches != 1 or not torch.isfinite(fbits).all():
+                raise AssertionError(f"frozen likelihood: dispatches {lik_dispatches}, bits "
+                                     f"{fbits}")
+            lik_how = _equal_or_fail("likelihood", {"z": fz.cpu().numpy(),
+                                                    "bits": fbits.cpu().numpy()},
+                                     {"z": ez.cpu().numpy(), "bits": ebits.cpu().numpy()})
+            result["likelihood"] = {"poses": B, "steps": LIKELIHOOD_STEPS,
+                                    "eager_s": lik_eager_s, "frozen_s": lik_frozen_s,
+                                    "launches": lik_launches, "agreement": lik_how,
+                                    "mean_bits": float(fbits.mean())}
+            print(f"frozen likelihood ({B} poses, {LIKELIHOOD_STEPS} steps, exact divergence, "
+                  f"on the frozen copy of the weights): eager {lik_eager_s:.4f} s, frozen "
+                  f"{lik_frozen_s:.4f} s; launches {lik_launches}, frozen dispatches 1; "
+                  f"{lik_how}; mean {float(fbits.mean()):.3f} bits; {card}", flush=True)
+        del agent
+        torch.cuda.empty_cache()
+    return result
+
+
+def frozen_sampler_runners(dev, card, nocs: str, seg: str, chunks: int, instances: int):
+    """Phase 17 (3): ``evaluation_single`` stages 2-3 on phase 9's tree under
+    ``--sampler_mode pc`` (PC-500), eagerly and with both agents frozen as
+    ``main`` freezes them: the results bit for bit; then ``main_tracking``
+    on phase 10's frames under ``--sde_mode edm --sampler_mode edm`` (EDM-18),
+    the eager arm (``freeze`` a no-op) and as a user calls it: pooled poses
+    bit for bit, the metrics equal."""
+    import pickle
+
+    cfg = eval_config(nocs, str(OUT_DIR / "eval" / "single_pc"), **SAMPLER_ARMS["pc"])
+    score, energy = eval_agents(cfg, dev)
+    dirs = {arm: str(OUT_DIR / "eval" / "single_pc" / arm) for arm in ("eager", "frozen")}
+    secs, launches = {}, {}
+    for arm in ("eager", "frozen"):
+        if arm == "frozen":
+            score.freeze()
+            energy.freeze()
+        secs[arm], launches[arm], dispatches = eval_stages_2_3(cfg, score, energy, seg, dirs[arm],
+                                                               chunks, f"pc {arm}")
+        want = {"stage 2": chunks if arm == "frozen" else 0,
+                "stage 3": chunks if arm == "frozen" else 0}
+        if dispatches != want:
+            raise AssertionError(f"evaluation pc {arm}: frozen dispatches {dispatches}, "
+                                 f"expected {want}")
+
+    def load(arm, name):
+        with open(Path(dirs[arm]) / name, "rb") as f:
+            return pickle.load(f)
+
+    for name, keys in (("results_wo_energy.pkl", ("multi_hypothesis_pred_RTs",)),
+                       ("results_with_energy.pkl", ("multi_hypothesis_pred_RTs", "energy"))):
+        a, b = load("frozen", name), load("eager", name)
+        _equal_or_fail(f"evaluation pc {name}", {f"{p}:{k}": a[p]["result"][k] for p in a
+                                                 for k in keys},
+                       {f"{p}:{k}": b[p]["result"][k] for p in b for k in keys})
+    del score, energy
+    torch.cuda.empty_cache()
+    evaluation = {"seconds": secs, "launches": launches,
+                  "stage2_poses_per_s": {a: instances / secs[a]["stage 2"] for a in secs},
+                  "agreement": "bit for bit"}
+    print(f"evaluation_single under --sampler_mode pc ({instances} instances in {chunks} chunks "
+          f"padded to {cfg.batch_size}; K={K}, PC-{cfg.sampling_steps}): stage 2 eager "
+          f"{secs['eager']['stage 2']:.4f} s = "
+          f"{evaluation['stage2_poses_per_s']['eager']:.2f} poses/s, frozen "
+          f"{secs['frozen']['stage 2']:.4f} s = {evaluation['stage2_poses_per_s']['frozen']:.2f} "
+          f"poses/s (capture included); stage 3 eager {secs['eager']['stage 3']:.4f} s, frozen "
+          f"{secs['frozen']['stage 3']:.4f} s; launches {launches['frozen']}; frozen vs eager "
+          f"bit for bit; {card}", flush=True)
+
+    edm = SAMPLER_ARMS["edm"]
+    agents = eval_agents(eval_config(nocs, "", **edm), dev)
+    eager, eager_poses, eager_metrics = tracking_path(dev, card, nocs, agents, **edm)
+    got, poses, metrics = tracking_path(dev, card, nocs, agents, frozen_arm=True, **edm)
+    how = _equal_or_fail("tracking edm pooled poses", dict(enumerate(poses)),
+                         dict(enumerate(eager_poses)))
+    for name, m in eager_metrics.items():
+        if (metrics[name]["5d5cm_acc"] != m["5d5cm_acc"]
+                or not np.array_equal(metrics[name]["mean_error"], m["mean_error"])):
+            raise AssertionError(f"tracking edm metrics of {name}: frozen {metrics[name]}, "
+                                 f"eager {m}")
+    print(f"main_tracking under --sde_mode edm --sampler_mode edm (EDM-{edm['sampling_steps']}): "
+          f"eager {eager['frames_per_s']:.3f} frames/s, frozen {got['frames_per_s']:.3f} "
+          f"frames/s (capture included); pooled poses {how}, metrics equal; {card}", flush=True)
+    return {"evaluation_pc": evaluation,
+            "tracking_edm": {"eager": eager, "frozen": got, "agreement": how}}
+
+
+def frozen_samplers(dev, card, pts: np.ndarray, eager14: dict, nocs: str, seg: str,
+                    chunks: int, instances: int):
+    """Phase 17: every sampler through the frozen programs."""
+    t0 = time.perf_counter()
+    out = {"serving": frozen_sampler_serving(dev, card, pts, eager14)}
+    out["trajectories"] = frozen_trajectories_and_likelihood(dev, card, pts)
+    out["runners"] = frozen_sampler_runners(dev, card, nocs, seg, chunks, instances)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 17 took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2860,6 +3184,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     bf16 = bf16_evaluation_tracking(dev, card, evaluation, frozen_arms["evaluation"], eval_ctx,
                                     nocs)
+    seg = eval_ctx["seg"]
     del eval_ctx
     torch.cuda.empty_cache()
     bf16["serving"] = bf16_serving(dev, card, pts, frozen_arms["serving"])
@@ -2886,6 +3211,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase16 = new_configurations(dev, card, pts, training["score"]["s_per_step"])
     torch.cuda.empty_cache()
+    phase17 = frozen_samplers(dev, card, pts, phase14["samplers"], nocs, seg,
+                              evaluation["chunks"], evaluation["instances"])
+    torch.cuda.empty_cache()
 
     fps_launches = results["ode"][1]["fps"]
     bq_launches = results["ode"][1]["ball_query"]
@@ -2908,9 +3236,11 @@ def main() -> int:
     def path_launches(k):
         """A kernel's launches in each run of the evaluation and tracking
         paths, of the frozen arms of phase 12, of the bfloat16 arms of
-        phase 13, of the checkpoint and sampler paths of phase 14 and of the
-        training CLI's runs of phase 15."""
+        phase 13, of the checkpoint and sampler paths of phase 14, of the
+        training CLI's runs of phase 15, of phase 16's configurations and of
+        phase 17's frozen samplers."""
         fz = frozen_arms
+        p17 = phase17
         return {"evaluation_stage2_launches": evaluation["launches"]["stage 2"][k],
                 "evaluation_stage3_launches": evaluation["launches"]["stage 3"][k],
                 "evaluation_chunks": evaluation["chunks"],
@@ -2938,7 +3268,21 @@ def main() -> int:
                     name: arm["launches"][k] for name, arm in phase16["serving"].items()},
                 "new_config_score_step_launches": {
                     name: arm["launches_per_step"] for name, arm in phase16["training"].items()},
-                "msg_encoder_launches": phase16["msg_encoder"]["launches"][k]}
+                "msg_encoder_launches": phase16["msg_encoder"]["launches"][k],
+                "training_cli_video_epoch_launches": cli["video"]["launches"][k],
+                **{f"frozen_{arm}_serving_launches": r["launches"][k]
+                   for arm, r in p17["serving"].items()},
+                **{f"frozen_{arm}_launches": r["launches"][k]
+                   for arm, r in p17["trajectories"].items()},
+                "pc_evaluation_stage2_launches": {
+                    a: p17["runners"]["evaluation_pc"]["launches"][a]["stage 2"][k]
+                    for a in ("eager", "frozen")},
+                "pc_evaluation_stage3_launches": {
+                    a: p17["runners"]["evaluation_pc"]["launches"][a]["stage 3"][k]
+                    for a in ("eager", "frozen")},
+                "edm_tracking_launches": {
+                    a: p17["runners"]["tracking_edm"][a]["launches"][k]
+                    for a in ("eager", "frozen")}}
 
     kernels = [
         summary("fps", "genpose_tpu_torch/csrc/fps.cu", "genpose_tpu/ops/fps_pallas.py:75",
@@ -2964,6 +3308,7 @@ def main() -> int:
     print(json.dumps({"training_cli": cli}), flush=True)
     print(json.dumps({"new_configurations": {k: v for k, v in phase16.items()
                                              if k not in ("fps_rows", "bq_rows")}}), flush=True)
+    print(json.dumps({"frozen_samplers": phase17}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

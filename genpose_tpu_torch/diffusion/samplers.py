@@ -26,15 +26,20 @@ at a reduced ``T0``) the integration starts from ``init_x + prior`` (JAX
 also returns the trajectory [rows, steps, pose_dim], rotations re-projected
 and the cloud centre added, as JAX lays it out.
 
-The fixed-step and RK45 integrations live in ``ODEChain`` and ``RK45``,
-which the samplers run eagerly and ``training/frozen.py`` captures in CUDA
-graphs.  Each builds its constants (the time grid, eps, the step bounds) as
-device tensors when it is made, outside any capture, and then launches
-device work only.  ``RK45`` keeps its state ``t, x, f, h, rejected, done``
-in tensors of its own that each attempt updates in place; its accept/reject
-control lives on the device, as in the JAX ``while_loop``, and the host
-reads one flag per attempt to decide whether to stop
-(``integrate_adaptive``).  PC, EDM and the likelihood run eagerly only.
+The integrations live in ``ODEChain`` (fixed-step), ``RK45``, ``PCChain``
+and ``EDMChain``, which the samplers run eagerly and ``training/frozen.py``
+captures in CUDA graphs.  Each builds its constants (the time grid or the
+sigma ladder, eps, the step bounds) as device tensors when it is made,
+outside any capture, and then launches device work only.  PC and EDM take
+their per-step draws from buffers, which ``pc_draws`` and ``edm_draws`` fill
+from a generator: the eager samplers and the frozen programs both call
+them, so both consume a generator alike by construction (the same calls in
+the same order as the loop of steps once made them).  ``RK45`` keeps its
+state ``t, x, f, h, rejected, done`` in tensors of its own that each attempt
+updates in place; its accept/reject control lives on the device, as in the
+JAX ``while_loop``, and the host reads one flag per attempt to decide
+whether to stop (``integrate_adaptive``).  The likelihood runs eagerly
+only: its divergence is a backward pass per pose dimension.
 
 The state stays float32 under a bfloat16 compute dtype: the heads return
 float32 scores (JAX promotes the same way), and ``_score`` refuses any
@@ -366,6 +371,79 @@ def _block_normalize(x: torch.Tensor, pose_mode: str) -> torch.Tensor:
     return torch.cat([r1, r2, x[:, 6:]], dim=-1)
 
 
+def pc_start(sde: SDE, batch_size: int, pose_mode: str, T0: Optional[float],
+             generator: Optional[torch.Generator], device,
+             init_x: Optional[torch.Tensor] = None) -> Tuple[float, torch.Tensor]:
+    """PC's start (T, x): without ``T0`` the full ladder from ``sde.T``
+    from ``init_x`` as it is, else from a prior draw (the reference); with
+    ``T0`` the prior at T0, added to ``init_x`` if given, as ``ode_sampler``."""
+    if T0 is None:
+        x = prior_rows(sde, batch_size, pose_mode, sde.T, generator, device) \
+            if init_x is None else init_x
+        return sde.T, x
+    return T0, prior_rows(sde, batch_size, pose_mode, T0, generator, device, init_x)
+
+
+def pc_draws(generator: Optional[torch.Generator], num_steps: int, shape, device
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """PC's per-step draws (corrector, predictor), each [num_steps, *shape]:
+    one ``torch.randn((2, *shape))`` a step, in step order, as the loop of
+    steps drew them.  One draw of [num_steps, 2, *shape] would give other
+    numbers (on the card Philox advances its offset per call, rounded up;
+    on the CPU ``normal_`` fills blocks of 16)."""
+    draws = torch.empty((num_steps, 2, *shape), device=device)
+    for i in range(num_steps):
+        draws[i] = torch.randn((2, *shape), generator=generator, device=device)
+    return draws[:, 0], draws[:, 1]
+
+
+class PCChain:
+    """The predictor-corrector steps of ``pc_sampler`` over
+    ``linspace(T, eps, num_steps)``, with the per-step draws taken from
+    buffers.  The grid and the step are built here; a call launches device
+    work only, so a CUDA graph can capture it whole."""
+
+    def __init__(self, sde: SDE, pose_mode: str, num_steps: int, T: float, device,
+                 snr: float = 0.16):
+        self.sde, self.pose_mode, self.num_steps, self.snr = sde, pose_mode, num_steps, snr
+        self.ts = _linspace(T, sde.eps, num_steps, device)
+        self.step_size = self.ts[0] - self.ts[1]
+        self.sqrt_step = torch.sqrt(self.step_size)
+        self.noise_norm = math.sqrt(float(get_pose_dim(pose_mode)))
+
+    def __call__(self, score_fn: Callable, x: torch.Tensor,
+                 noise: Tuple[torch.Tensor, torch.Tensor], pts_center: torch.Tensor,
+                 return_process: bool = False):
+        """x [rows, pose_dim], read and not written; ``noise`` (corrector,
+        predictor) [num_steps, rows, pose_dim] -> the camera-frame poses, or
+        (trajectory [rows, num_steps, pose_dim], poses)."""
+        sde, pose_mode, step_size = self.sde, self.pose_mode, self.step_size
+        mean_x, xs = x, []
+        for i in range(self.num_steps):
+            t = self.ts[i]
+            # corrector (Langevin MCMC)
+            grad = _score(score_fn, x, t)
+            grad_norm = torch.mean(torch.linalg.norm(grad, dim=-1))
+            langevin_step = torch.where(
+                grad_norm > 1e-8,
+                2.0 * (self.snr * self.noise_norm / torch.clamp(grad_norm, min=1e-8)) ** 2, 0.0)
+            x = x + langevin_step * grad + torch.sqrt(2.0 * langevin_step) * noise[0][i]
+            x = _block_normalize(x, pose_mode)
+            # predictor (Euler-Maruyama on the reverse SDE)
+            drift, diffusion = sde.sde(t.reshape(1, 1))
+            grad = _score(score_fn, x, t)
+            mean_x = x + (diffusion ** 2 * grad - drift * x) * step_size
+            x = mean_x + diffusion * self.sqrt_step * noise[1][i]
+            x = torch.cat([normalize_rotation(x[:, :-3], pose_mode), x[:, -3:]], dim=-1)
+            if return_process:
+                xs.append(x)
+        out = _finish(mean_x, pose_mode, pts_center)
+        if return_process:
+            traj = torch.stack(xs, dim=1)
+            return torch.cat([traj[..., :-3], traj[..., -3:] + pts_center[:, None]], dim=-1), out
+        return out
+
+
 def pc_sampler(score_fn: Callable, batch_size: int, sde: SDE, pose_mode: str = "rot_matrix",
                num_steps: int = 500, snr: float = 0.16, T0: Optional[float] = None,
                init_x: Optional[torch.Tensor] = None, pts_center: Optional[torch.Tensor] = None,
@@ -382,59 +460,27 @@ def pc_sampler(score_fn: Callable, batch_size: int, sde: SDE, pose_mode: str = "
     reverse SDE with the score re-evaluated at the corrected x and the
     backward sign x + (g^2 s - f) dt (the JAX package's two fixes of the
     reference), then the rotation re-projection.  The answer is the last
-    predictor mean, re-projected, with the centre added.
+    predictor mean, re-projected, with the centre added.  The corrector's
+    step is a mean over all rows, so every row, padding included, is part
+    of every other row's result.
 
-    Without ``T0`` the full ladder from ``sde.T`` and ``init_x`` as it is
-    (the reference); with ``T0`` the ladder starts at T0 from ``init_x`` +
-    the prior at T0, as ``ode_sampler``.  ``noise``: (corrector draws,
-    predictor draws), each [num_steps, batch_size, pose_dim]; else each
-    step draws both from ``generator``.  Returns x [batch_size, pose_dim],
-    or (trajectory [batch_size, num_steps, pose_dim], x).
+    Start: ``pc_start``.  ``noise``: (corrector draws, predictor draws),
+    each [num_steps, batch_size, pose_dim]; else ``pc_draws`` from
+    ``generator`` after the prior.  Returns x [batch_size, pose_dim], or
+    (trajectory [batch_size, num_steps, pose_dim], x).
     """
-    pose_dim = get_pose_dim(pose_mode)
     device = _sampler_device(device, pts_center, generator)
-    shape = (batch_size, pose_dim)
-    if T0 is None:
-        T = sde.T
-        x = prior_rows(sde, batch_size, pose_mode, T, generator, device) \
-            if init_x is None else init_x
-    else:
-        T = T0
-        x = prior_rows(sde, batch_size, pose_mode, T, generator, device, init_x)
+    shape = (batch_size, get_pose_dim(pose_mode))
+    T, x = pc_start(sde, batch_size, pose_mode, T0, generator, device, init_x)
     if pts_center is None:
         pts_center = torch.zeros((batch_size, 3), device=device)
-    if noise is not None and any(z.shape != (num_steps, *shape) for z in noise):
+    if noise is None:
+        noise = pc_draws(generator, num_steps, shape, x.device)
+    elif any(z.shape != (num_steps, *shape) for z in noise):
         raise ValueError(f"noise shapes {[tuple(z.shape) for z in noise]} do not fit "
                          f"{num_steps} steps of {shape}")
-    ts = _linspace(T, sde.eps, num_steps, x.device)
-    step_size = ts[0] - ts[1]
-    noise_norm = math.sqrt(float(pose_dim))
-    mean_x, xs = x, []
-    for i in range(num_steps):
-        t = ts[i]
-        z1, z2 = (noise[0][i], noise[1][i]) if noise is not None else torch.randn(
-            (2, *shape), generator=generator, device=x.device).unbind(0)
-        # corrector (Langevin MCMC)
-        grad = _score(score_fn, x, t)
-        grad_norm = torch.mean(torch.linalg.norm(grad, dim=-1))
-        langevin_step = torch.where(
-            grad_norm > 1e-8, 2.0 * (snr * noise_norm / torch.clamp(grad_norm, min=1e-8)) ** 2,
-            0.0)
-        x = x + langevin_step * grad + torch.sqrt(2.0 * langevin_step) * z1
-        x = _block_normalize(x, pose_mode)
-        # predictor (Euler-Maruyama on the reverse SDE)
-        drift, diffusion = sde.sde(t.reshape(1, 1))
-        grad = _score(score_fn, x, t)
-        mean_x = x + (diffusion ** 2 * grad - drift * x) * step_size
-        x = mean_x + diffusion * torch.sqrt(step_size) * z2
-        x = torch.cat([normalize_rotation(x[:, :-3], pose_mode), x[:, -3:]], dim=-1)
-        if return_process:
-            xs.append(x)
-    out = _finish(mean_x, pose_mode, pts_center)
-    if return_process:
-        traj = torch.stack(xs, dim=1)
-        return torch.cat([traj[..., :-3], traj[..., -3:] + pts_center[:, None]], dim=-1), out
-    return out
+    chain = PCChain(sde, pose_mode, num_steps, T, x.device, snr)
+    return chain(score_fn, x, noise, pts_center, return_process)
 
 
 def ode_likelihood(score_fn: Callable, x: torch.Tensor, sde: SDE, pose_mode: str = "rot_matrix",
@@ -506,6 +552,79 @@ def edm_sigma_start(T0: Optional[float], sigma_min: float, sigma_max: float) -> 
     return sigma_min ** (1.0 - t0) * sigma_max ** t0
 
 
+def edm_draws(generator: Optional[torch.Generator], shape, num_steps: int, churn: bool,
+              device, latents: Optional[torch.Tensor] = None,
+              noise: Optional[torch.Tensor] = None):
+    """EDM's draws (latents [*shape], churn noise [num_steps, *shape] or
+    None): each one not given is drawn from ``generator``, the latents
+    first, then one ``torch.randn(shape)`` a step, as the loop of steps drew
+    them; without churn (``S_churn`` = 0, the default) no noise is drawn."""
+    if latents is None:
+        latents = torch.randn(shape, generator=generator, device=device)
+    if churn and noise is None:
+        noise = torch.empty((num_steps, *shape), device=device)
+        for n in range(num_steps):
+            noise[n] = torch.randn(shape, generator=generator, device=device)
+    return latents, (noise if churn else None)
+
+
+class EDMChain:
+    """The Heun steps of ``edm_sampler`` on the Karras ladder from the start
+    sigma of ``T0``, with the draws taken from buffers.  The ladder is built
+    here; a call launches device work only, so a CUDA graph can capture it
+    whole."""
+
+    def __init__(self, pose_mode: str, num_steps: int, device, sigma_min: float = 0.002,
+                 sigma_max: float = 80.0, rho: float = 7.0, S_churn: float = 0.0,
+                 S_min: float = 0.0, S_max: float = float("inf"), S_noise: float = 1.0,
+                 T0: Optional[float] = None):
+        if num_steps < 2:
+            raise ValueError(f"edm_sampler needs num_steps >= 2, got {num_steps}")
+        self.pose_mode, self.num_steps = pose_mode, num_steps
+        self.S_min, self.S_max, self.S_noise = S_min, S_max, S_noise
+        start = edm_sigma_start(T0, sigma_min, sigma_max)
+        i = torch.arange(num_steps, dtype=torch.float32, device=device)
+        a, b = start ** (1 / rho), sigma_min ** (1 / rho)
+        t_steps = (a + i / (num_steps - 1) * (b - a)) ** rho
+        self.t_steps = torch.cat([t_steps, torch.zeros(1, device=device)])
+        self.gamma_base = min(S_churn / num_steps, math.sqrt(2.0) - 1.0)
+
+    @property
+    def churn(self) -> bool:
+        return self.gamma_base > 0
+
+    def __call__(self, denoise_fn: Callable, latents: torch.Tensor, pts_center: torch.Tensor,
+                 init_x: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                 return_process: bool = False):
+        """latents [rows, pose_dim] (unit), ``noise`` [num_steps, rows,
+        pose_dim] under churn -> the camera-frame poses, or (trajectory
+        [rows, num_steps, pose_dim], poses)."""
+        t_steps = self.t_steps
+        x = latents * t_steps[0]
+        if init_x is not None:
+            x = init_x + x
+        xs = []
+        for n in range(self.num_steps):
+            t_cur, t_next = t_steps[n], t_steps[n + 1]
+            x_hat, t_hat = x, t_cur
+            if self.churn:
+                in_range = (t_cur >= self.S_min) & (t_cur <= self.S_max)
+                t_hat = t_cur + torch.where(in_range, self.gamma_base, 0.0) * t_cur
+                x_hat = x + torch.sqrt(torch.clamp(t_hat ** 2 - t_cur ** 2, min=0.0)) \
+                    * self.S_noise * noise[n]
+            d_cur = (x_hat - denoise_fn(x_hat, t_hat.reshape(1, 1))) / t_hat
+            x = x_hat + (t_next - t_hat) * d_cur
+            if n < self.num_steps - 1:
+                d_prime = (x - denoise_fn(x, t_next.reshape(1, 1))) / t_next
+                x = x_hat + (t_next - t_hat) * (0.5 * d_cur + 0.5 * d_prime)
+            if return_process:
+                xs.append(x)
+        out = _finish(x, self.pose_mode, pts_center)
+        if return_process:
+            return _finish_process(xs, self.pose_mode, pts_center), out
+        return out
+
+
 def edm_sampler(denoise_fn: Callable, batch_size: int, pose_mode: str = "rot_matrix",
                 num_steps: int = 18, sigma_min: float = 0.002, sigma_max: float = 80.0,
                 rho: float = 7.0, S_churn: float = 0.0, S_min: float = 0.0,
@@ -525,46 +644,15 @@ def edm_sampler(denoise_fn: Callable, batch_size: int, pose_mode: str = "rot_mat
     draw [batch_size, pose_dim], else from ``generator``) times s, added to
     ``init_x`` if given.  With ``S_churn`` > 0 each step first adds noise
     (``noise`` [num_steps, batch_size, pose_dim], else drawn); at the
-    default 0 the churn adds exactly nothing and nothing is drawn.
-    Returns x [batch_size, pose_dim], or (trajectory [batch_size,
-    num_steps, pose_dim], x).
+    default 0 the churn adds exactly nothing and nothing is drawn
+    (``edm_draws``).  Returns x [batch_size, pose_dim], or (trajectory
+    [batch_size, num_steps, pose_dim], x).
     """
-    if num_steps < 2:
-        raise ValueError(f"edm_sampler needs num_steps >= 2, got {num_steps}")
-    pose_dim = get_pose_dim(pose_mode)
     device = _sampler_device(device, pts_center, generator)
+    chain = EDMChain(pose_mode, num_steps, device, sigma_min, sigma_max, rho, S_churn, S_min,
+                     S_max, S_noise, T0)
     if pts_center is None:
         pts_center = torch.zeros((batch_size, 3), device=device)
-    if latents is None:
-        latents = torch.randn((batch_size, pose_dim), generator=generator, device=device)
-    dev = latents.device
-    start = edm_sigma_start(T0, sigma_min, sigma_max)
-    i = torch.arange(num_steps, dtype=torch.float32, device=dev)
-    a, b = start ** (1 / rho), sigma_min ** (1 / rho)
-    t_steps = (a + i / (num_steps - 1) * (b - a)) ** rho
-    t_steps = torch.cat([t_steps, torch.zeros(1, device=dev)])
-    gamma_base = min(S_churn / num_steps, math.sqrt(2.0) - 1.0)
-    x = latents * t_steps[0]
-    if init_x is not None:
-        x = init_x + x
-    xs = []
-    for n in range(num_steps):
-        t_cur, t_next = t_steps[n], t_steps[n + 1]
-        x_hat, t_hat = x, t_cur
-        if gamma_base > 0:
-            in_range = (t_cur >= S_min) & (t_cur <= S_max)
-            t_hat = t_cur + torch.where(in_range, gamma_base, 0.0) * t_cur
-            z = noise[n] if noise is not None else torch.randn(
-                x.shape, generator=generator, device=dev)
-            x_hat = x + torch.sqrt(torch.clamp(t_hat ** 2 - t_cur ** 2, min=0.0)) * S_noise * z
-        d_cur = (x_hat - denoise_fn(x_hat, t_hat.reshape(1, 1))) / t_hat
-        x = x_hat + (t_next - t_hat) * d_cur
-        if n < num_steps - 1:
-            d_prime = (x - denoise_fn(x, t_next.reshape(1, 1))) / t_next
-            x = x_hat + (t_next - t_hat) * (0.5 * d_cur + 0.5 * d_prime)
-        if return_process:
-            xs.append(x)
-    out = _finish(x, pose_mode, pts_center)
-    if return_process:
-        return _finish_process(xs, pose_mode, pts_center), out
-    return out
+    latents, noise = edm_draws(generator, (batch_size, get_pose_dim(pose_mode)), num_steps,
+                               chain.churn, device, latents, noise)
+    return chain(denoise_fn, latents, pts_center, init_x, noise, return_process)

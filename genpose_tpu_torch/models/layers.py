@@ -72,7 +72,8 @@ class PositionalEmbedding(nn.Module):
         half = self.num_channels // 2
         freqs = torch.arange(half, dtype=torch.float32, device=x.device)
         freqs = freqs / (half - (1 if self.endpoint else 0))
-        base = torch.tensor(1.0 / self.max_positions, dtype=torch.float32, device=x.device)
+        # a fill on the device, not a copy from the host: safe inside a CUDA graph capture
+        base = torch.full((), 1.0 / self.max_positions, dtype=torch.float32, device=x.device)
         x = x[:, None] * torch.pow(base, freqs)[None, :]
         return torch.cat([torch.cos(x), torch.sin(x)], dim=-1)
 

@@ -162,6 +162,18 @@ def pose_to_rt(pose: torch.Tensor, pose_mode: str):
     return get_rot_matrix(pose[..., :idx], pose_mode), pose[..., idx:]
 
 
+def transform_batch_pts(batch_pts: torch.Tensor, batch_pose: torch.Tensor,
+                        pose_mode: str = "quat_wxyz", inverse_pose: bool = False) -> torch.Tensor:
+    """The xyz channels of clouds [B, N, C>=3] moved by poses [B, pose_dim]
+    (R x + t, or the inverse pose's with ``inverse_pose``); the other
+    channels as they are (reference ``misc.py:158-189``)."""
+    rot, loc = pose_to_rt(batch_pose, pose_mode)
+    if inverse_pose:
+        rot, loc = inverse_RT(rot, loc)
+    new_xyz = torch.einsum("bij,bnj->bni", rot, batch_pts[..., :3]) + loc[:, None, :]
+    return torch.cat([new_xyz, batch_pts[..., 3:]], dim=-1)
+
+
 def rt_to_matrix4(rot: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
     """(R, t) -> homogeneous [..., 4, 4]."""
     m = torch.zeros(rot.shape[:-2] + (4, 4), dtype=rot.dtype, device=rot.device)

@@ -20,9 +20,10 @@ Stages 2-3 run on the agents' device; each chunk's PointNet++ geometry
 As in the JAX runner, every chunk is padded to ``batch_size`` with copies
 of its last instance, and the padded rows are dropped from the results.
 The padded rows take part in the integration: the adaptive RK45 sampler
-picks one step size for all rows, so the real rows integrate as the JAX
-runner's do; and every chunk has one shape, so ``main``'s frozen agents
-capture one set of CUDA graphs per stage.
+picks one step size for all rows and PC's corrector one Langevin step
+from the mean score norm over all rows, so the real rows integrate as the
+JAX runner's do; and every chunk has one shape, so ``main``'s frozen
+agents capture one set of CUDA graphs per stage, under every sampler.
 
 Usage (weights: the port's checkpoints, ``training/checkpoints.py``, found
 under ``results/ckpts/<score_model_dir>`` and ``<energy_model_dir>`` as the
@@ -252,8 +253,9 @@ def inference_pose(cfg: Config, score_agent: PoseAgent, data_path: str,
         for lo, hi in _chunks(num, cfg.batch_size):
             batch = {k: pad_rows(v, cfg.batch_size)
                      for k, v in zero_center_batch(data["pts"][lo:hi], dev).items()}
-            # sampler from cfg.sampler_mode: "ode" (Heun at cfg.sampling_steps)
-            # or "ode_adaptive" (RK45 at atol/rtol 1e-5, the reference's solver)
+            # sampler from cfg.sampler_mode: "ode" (Heun at cfg.sampling_steps),
+            # "ode_adaptive" (RK45 at atol/rtol 1e-5, the reference's solver),
+            # "pc" or, under sde_mode "edm", "edm", each at cfg.sampling_steps
             pred = score_agent.sample(batch, generator=generator,
                                       repeat_num=cfg.eval_repeat_num,
                                       num_steps=cfg.sampling_steps, T0=cfg.T0)[:hi - lo]

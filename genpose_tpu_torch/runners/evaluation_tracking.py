@@ -15,8 +15,9 @@ samples from the ``init_x`` + T0 prior; energies; the decoupled sort; the
 top-60% quaternion pool.  As in the JAX runner, a frame's instances (and
 their ``init_x`` rows) are padded to the next power of two with copies of
 the last, and only the first rows are kept: the adaptive RK45 sampler picks
-one step size for all rows, so the real rows integrate as the JAX runner's
-do.  ``main_tracking`` freezes both agents before the frame loop (JAX
+one step size for all rows, and PC one Langevin step from all rows, so the
+real rows integrate as the JAX runner's do.  The sampler is
+``cfg.sampler_mode[0]``, every one of them frozen.  ``main_tracking`` freezes both agents before the frame loop (JAX
 closes ``frame_pipeline`` over the pinned states), so on a card each
 power-of-two bucket replays one set of CUDA graphs.  One worker thread
 decodes frame n+1 while the device runs frame n.

@@ -31,8 +31,9 @@ sampler is ``cfg.sampler_mode[0]`` (``ode``, ``ode_adaptive``, ``pc``, or
 from ``cfg.T0``.  ``freeze()`` is
 the JAX pipeline's weights-as-constants program: both agents' sampling and
 energy passes then replay CUDA graphs of a private copy of their weights
-(``training/frozen.py``), with the geometry, the prior draw, the sort and
-the pooling outside the graphs.
+(``training/frozen.py``) under every sampler, with the geometry, the
+sampler's draws from the request's generator, the sort and the pooling
+outside the graphs.
 """
 
 from __future__ import annotations

@@ -15,8 +15,10 @@ Usage (the same flags and defaults as ``python -m genpose_tpu.runners.trainer``;
   teacher whose score replaces the DSM target (distillation,
   ``trainer.py:406-419``).  Every ``eval_freq`` epochs it samples one pose
   per object of the first train and val batch, logs the mean errors
-  (``get_metrics``) and saves a checkpoint; a final checkpoint is always
-  written.
+  (``get_metrics``) and the pose-render grid (``MetricsLogger.image``),
+  with ``--save_video`` writes the result grid and the diffusion frames
+  under ``<log dir>/video_epoch<N>_<mode>`` (``utils/visualize.py``), and
+  saves a checkpoint; a final checkpoint is always written.
 - ``train_energy``: with ``ranking``, energy training where a frozen score
   agent generates K=5 candidates per batch online and the energy agent
   learns DSM plus the ranking of those candidates (``trainer.py:325-388``);
@@ -28,7 +30,8 @@ Usage (the same flags and defaults as ``python -m genpose_tpu.runners.trainer``;
   ``evaluation`` (``trainer.py:234-263``): quaternion-averaged hypotheses
   of a ``results.pkl`` against GT, ``average_results.pkl`` (never over the
   input); ``prediction`` (``trainer.py:29-160``): K hypotheses ranked by
-  energy, averaged and best-energy poses, ``prediction_results.pkl``.
+  energy, averaged and best-energy poses, ``prediction_results.pkl`` and
+  ``so3_distribution_<i>.png`` (``utils/so3_visualize.py``).
 - ``main``: the NOCS loaders (``data/loader.py``), the three agent types
   (the energy warm start from score weights with re-zeroed heads,
   ``--distillation``, ``energy_with_ranking``), resume under
@@ -46,11 +49,12 @@ device, seeded as the JAX keys are: ``cfg.seed`` (``train_score``),
 ``+ 1`` (``train_energy``), ``+ 2`` (``inference``), ``+ 3``
 (``prediction``; the likelihood's exact divergence draws nothing).
 
-Not ported, and refused by ``main`` before any work: ``--save_video`` (the
-diffusion videos of the eval epoch) and ``num_devices > 1``.  The eval
-epoch's pose renders (TensorBoard images) and ``prediction``'s SO(3) and
-grid images are not drawn; as the JAX runner does when its drawing
-libraries are missing, a line says so and the flow goes on.
+The drawing is best-effort, as in the JAX runner: where it fails (the
+card's machine has no matplotlib for the SO(3) images), a line says why
+and the flow goes on.  ``--save_video`` writes each sample's diffusion
+steps as numbered PNG frames where the JAX runner encodes an mp4
+(``utils/visualize.py::save_video``).  Not ported, and refused by ``main``
+before any work: ``num_devices > 1``.
 """
 
 from __future__ import annotations
@@ -82,7 +86,7 @@ from genpose_tpu_torch.training.checkpoints import (
     save_checkpoint,
 )
 from genpose_tpu_torch.training.ranking import sort_poses_by_energy
-from genpose_tpu_torch.utils.device import runner_device
+from genpose_tpu_torch.utils.device import resolve_device, runner_device
 from genpose_tpu_torch.utils.logging import MetricsLogger, TrainClock
 
 NUM_CANDIDATES = 5  # score-model candidates per object for the ranking loss (trainer.py:196)
@@ -105,18 +109,51 @@ def _batch_errors(cfg: Config, pose: torch.Tensor, gt: torch.Tensor, batch, pose
                        cfg.o2c_pose)
 
 
+def _visualize_eval(cfg: Config, logger: MetricsLogger, batch, pred: torch.Tensor,
+                    process: Optional[torch.Tensor], mode: str, epoch: int) -> None:
+    """The pose-render grid to the metrics logger and, with ``--save_video``,
+    the result grid and the diffusion frames (JAX ``trainer.py:57-79``; ref
+    ``posenet_agent.py:343-351, 590-598``).  Best-effort: the eval metrics
+    never depend on the drawing."""
+    try:
+        from genpose_tpu_torch.utils.visualize import create_grid_image, test_time_visualize
+
+        pts, gt = batch["pts"].cpu().numpy(), batch["gt_pose"].cpu().numpy()
+        grid, _ = create_grid_image(pts, pred.cpu().numpy(), gt, None, cfg.pose_mode,
+                                    cfg.o2c_pose)
+        logger.image(f"{mode}/pose_render", grid.transpose(2, 0, 1), epoch)
+        if cfg.save_video and process is not None:
+            test_time_visualize(os.path.join(logger.log_dir, f"video_epoch{epoch}_{mode}"),
+                                {"pts": pts, "gt_pose": gt}, pred.cpu().numpy(),
+                                process.cpu().numpy(), cfg.pose_mode, cfg.o2c_pose)
+    except Exception as e:
+        print(f"eval visualization skipped: {e}")
+
+
 def _eval_epoch(cfg: Config, agent: PoseAgent, loaders, logger: MetricsLogger,
                 epoch: int, generator: torch.Generator) -> None:
-    """One sampled pose per object of the first batch of each loader, and
-    its mean rotation / translation errors."""
+    """One sampled pose per object of the first batch of each loader, its
+    mean rotation / translation errors and its pictures; with
+    ``--save_video`` the sampling also returns its trajectory, by the
+    fixed-step PF-ODE where the config's sampler is the adaptive one (JAX
+    ``trainer.py:123-133``)."""
     for loader, mode in loaders:
         raw = next(iter(loader), None)
         if raw is None:
             continue
         batch = process_batch(raw, cfg.pose_mode, mini_batch_size=cfg.mini_bs,
                               device=agent.device)
-        pred = agent.sample(batch, generator=generator, repeat_num=1,
-                            num_steps=cfg.sampling_steps)
+        process = None
+        if cfg.save_video:
+            adaptive = bool(cfg.sampler_mode) and cfg.sampler_mode[0] == "ode_adaptive"
+            process, pred = agent.sample(batch, generator=generator, repeat_num=1,
+                                         sampler="ode" if adaptive else None,
+                                         num_steps=cfg.sampling_steps, return_process=True)
+            process = process[:, 0]
+        else:
+            pred = agent.sample(batch, generator=generator, repeat_num=1,
+                                num_steps=cfg.sampling_steps)
+        _visualize_eval(cfg, logger, batch, pred[:, 0], process, mode, epoch)
         rot_err, trans_err = _batch_errors(cfg, pred[:, 0], batch["gt_pose"], batch,
                                            cfg.pose_mode)
         logger.scalar(f"{mode}/ode_mean_rot_error", float(np.mean(rot_err)), epoch)
@@ -288,12 +325,13 @@ def _quat_pose(pose: torch.Tensor, pose_mode: str) -> torch.Tensor:
     return torch.cat([quat, pose[..., -3:]], dim=-1)
 
 
-def evaluation(cfg: Config, device="cpu") -> np.ndarray:
+def evaluation(cfg: Config, device="cuda") -> np.ndarray:
     """Errors of a ``results.pkl``'s quaternion-averaged hypotheses against
     GT (ref ``trainer.py:234-263``): [N, 2] (degrees, cm), written to
     ``average_results.pkl`` beside it, or ``<input>.average_results.pkl``
     when the input's name does not hold ``results.pkl`` (never over the
-    input)."""
+    input).  Runs on the card unless ``device`` says otherwise."""
+    device = resolve_device(device)
     with open(cfg.results_path, "rb") as f:
         results = pickle.load(f)
     pred = torch.as_tensor(np.asarray(results["pred_pose"], np.float32), device=device)
@@ -324,7 +362,9 @@ def prediction(cfg: Config, test_loader: Iterable, agent: PoseAgent,
     an energy agent; a score-only run takes the first hypothesis), the
     quaternion-averaged and the best-energy pose with their errors:
     ``<out_dir>/predictions/<log_dir>/prediction_results.pkl`` (ref
-    ``trainer.py:29-160``).  The SO(3) and grid images are not drawn."""
+    ``trainer.py:29-160``), and for the first batch's first 8 objects
+    ``so3_distribution_<i>.png``: the hypotheses' SO(3) scatter beside the
+    object's grid image (best-effort, as in JAX)."""
     e_agent = energy_agent or agent
     gen = _generator(agent, cfg.seed + 3)
     save_dir = os.path.join(out_dir, "predictions", cfg.log_dir)
@@ -353,11 +393,35 @@ def prediction(cfg: Config, test_loader: Iterable, agent: PoseAgent,
                         "choosed_pred_pose": chosen_q.cpu().numpy(),
                         "gt_pose": gt_q.cpu().numpy(), "energy": energy.cpu().numpy(),
                         "pts": batch["pts"].cpu().numpy()})
-    print("visualization skipped: the SO(3) and grid images are not ported")
+    _visualize_prediction(cfg, all_res[0] if all_res else None, save_dir)
     with open(os.path.join(save_dir, "prediction_results.pkl"), "wb") as f:
         pickle.dump(all_res, f)
     print(f"prediction artifacts -> {save_dir}")
     return all_res
+
+
+def _visualize_prediction(cfg: Config, first: Optional[dict], save_dir: str) -> None:
+    """JAX ``trainer.py:408-429``: per object of the first batch (at most 8)
+    the SO(3) distribution of its hypotheses, the pooled and the GT rotation,
+    beside its grid image."""
+    try:
+        from genpose_tpu_torch.utils.so3_visualize import visualize_so3
+        from genpose_tpu_torch.utils.visualize import create_grid_image
+
+        def rot(quat_pose):
+            return get_rot_matrix(torch.as_tensor(quat_pose), "quat_wxyz").numpy()
+
+        for i in range(min(first["pred_pose"].shape[0], 8)):
+            grid, _ = create_grid_image(first["pts"][i:i + 1],
+                                        first["average_pred_pose"][i:i + 1],
+                                        first["gt_pose"][i:i + 1], None, pose_mode="quat_wxyz",
+                                        inverse_pose=cfg.o2c_pose)
+            visualize_so3(save_path=os.path.join(save_dir, f"so3_distribution_{i}.png"),
+                          pred_rotations=rot(first["pred_pose"][i][:, :-3]),
+                          pred_rotation=rot(first["average_pred_pose"][i:i + 1, :-3]),
+                          gt_rotation=rot(first["gt_pose"][i:i + 1, :-3]), image=grid)
+    except Exception as e:
+        print(f"visualization skipped: {e}")
 
 
 def _load_pretrained(agent: PoseAgent, path: str, load_model_only: bool = True) -> None:
@@ -397,9 +461,6 @@ def _resolve_eval_weights(cfg: Config, agent: PoseAgent, ckpt_dir: str) -> None:
 
 def refuse_unported(cfg: Config) -> None:
     """Raise for what the port's CLI does not do, before any work."""
-    if cfg.save_video:
-        raise NotImplementedError(
-            "--save_video (the eval epoch's diffusion videos) is not ported")
     if cfg.num_devices > 1:
         raise NotImplementedError(
             f"--num_devices {cfg.num_devices}: training on several cards is not ported")
@@ -484,7 +545,6 @@ def _run_flows(cfg: Config, device, loaders, steps_per_epoch: int, out_dir: str)
         return
 
     train_loader, val_loader = loaders["train_loader"], loaders["val_loader"]
-    print("eval visualization skipped: the eval epoch's pose renders are not ported")
     if cfg.agent_type == "score":
         train_score(cfg, train_loader, val_loader, tr_agent, out_dir=out_dir)
     else:

@@ -45,9 +45,11 @@ onto the sigma ladder (``diffusion/samplers.py::edm_sigma_start``).
 Randomness comes from an explicit ``torch.Generator``; every draw can also
 be passed in (``noise`` and ``t_int`` of the training steps, ``noise`` and
 ``latents`` of the PC and EDM samplers, ``t_int`` of ``get_energy``), so
-that tests can give both packages the same numbers.  The frozen programs serve the ``ode`` and ``ode_adaptive``
-samplers; a frozen agent asked for another sampler, a trajectory or a
-likelihood raises rather than run eagerly.
+that tests can give both packages the same numbers.  The frozen programs
+serve every sampler (``ode``, ``ode_adaptive``, ``pc``, ``edm``), with or
+without the trajectory and with injected draws, and the likelihood, as a
+frozen JAX agent does; a frozen call equals the eager one bit for bit and
+consumes the generator alike.
 """
 
 from __future__ import annotations
@@ -84,6 +86,7 @@ from genpose_tpu_torch.training.state import EMA, TrainState, create_train_state
 from genpose_tpu_torch.utils.weights import from_jax_variables, shadow_from_jax
 
 Noise = Tuple[torch.Tensor, torch.Tensor]
+SAMPLERS = ("ode", "ode_adaptive", "pc", "edm")
 
 
 class PoseAgent:
@@ -429,10 +432,13 @@ class PoseAgent:
         mapped onto the sigma ladder for every sampler (``agent.py:480-493``),
         and ``edm`` defaults to 18 steps.  ``noise``: PC's per-step draws
         (see ``pc_sampler``); ``latents``: EDM's unit prior [bs * repeat_num,
-        pose_dim].  After ``freeze()`` the frozen programs run ``ode`` and
-        ``ode_adaptive`` (same result, same draws from ``generator``); a
-        frozen agent raises for anything else."""
+        pose_dim].  After ``freeze()`` the frozen programs run every sampler,
+        trajectory and injected draw alike (same result, same draws from
+        ``generator``).  A sampler name that neither package has raises
+        before any work."""
         sampler = sampler or (self.cfg.sampler_mode[0] if self.cfg.sampler_mode else "ode")
+        if sampler not in SAMPLERS:
+            raise NotImplementedError(f"sampler {sampler!r} (the samplers are {SAMPLERS})")
         if sampler == "edm" and num_steps is None:
             num_steps = 18  # ref cond_edm_sampler's default (samplers.py:232)
         num_steps = num_steps or self.cfg.sampling_steps
@@ -446,14 +452,26 @@ class PoseAgent:
         bs = pts.shape[0]
         frozen = self.frozen_programs()
         if frozen is not None:
-            if return_process:
-                raise NotImplementedError("the frozen path has no trajectory (return_process)")
             res, geometry = frozen.sample(batch, generator, repeat_num, sampler, num_steps, T0,
-                                          init_x, geometry)
-            return (res, geometry) if return_geometry else res
-        if return_geometry and geometry is None:
-            geometry = self.pts_geometry(pts)
-        rows = bs * repeat_num
+                                          init_x, geometry, return_process, noise, latents)
+        else:
+            if return_geometry and geometry is None:
+                geometry = self.pts_geometry(pts)
+            res = self._sample_eager(batch, generator, repeat_num, sampler, num_steps, T0,
+                                     init_x, geometry, return_process, noise, latents)
+        if return_process:
+            process, res = res
+            process = process.reshape(bs, repeat_num, process.shape[1], -1)
+        res = res.reshape(bs, repeat_num, -1)
+        out = (process, res) if return_process else (res,)
+        if return_geometry:
+            out = out + (geometry,)
+        return out if len(out) > 1 else res
+
+    def _sample_eager(self, batch, generator, repeat_num, sampler, num_steps, T0, init_x,
+                      geometry, return_process, noise, latents):
+        pts = batch["zero_mean_pts"]
+        rows = pts.shape[0] * repeat_num
         with self.ema_weights():
             feat = self._encode(pts, train=False, geometry=geometry)
             center_rep = batch["pts_center"].repeat_interleave(repeat_num, dim=0)
@@ -473,19 +491,10 @@ class PoseAgent:
                                       return_process=return_process, **kw)
                 elif sampler == "ode_adaptive":
                     res = ode_sampler_adaptive(*args, T0=T0, **kw)
-                elif sampler == "pc":
+                else:
                     res = pc_sampler(*args, num_steps=num_steps, T0=T0,
                                      return_process=return_process, noise=noise, **kw)
-                else:
-                    raise NotImplementedError(f"sampler {sampler!r}")
-        if return_process:
-            process, res = res
-            process = process.reshape(bs, repeat_num, process.shape[1], -1)
-        res = res.reshape(bs, repeat_num, -1)
-        out = (process, res) if return_process else (res,)
-        if return_geometry:
-            out = out + (geometry,)
-        return out if len(out) > 1 else res
+        return res
 
     # ------------------------------------------------------------------
     # energies of candidate poses (ref posenet_agent.py:471-527)
@@ -524,9 +533,10 @@ class PoseAgent:
         """PF-ODE log-likelihoods of poses [bs, pose_dim] (zero-centred
         translations) under the EMA shadow, with the exact divergence
         (``agent.py:614-626``): returns (latent z [bs, pose_dim], bits
-        [bs]).  A frozen agent raises."""
-        if self.frozen_programs() is not None:
-            raise NotImplementedError("the frozen path has no likelihood")
+        [bs]).  A frozen agent runs it on its frozen copy of the shadow."""
+        frozen = self.frozen_programs()
+        if frozen is not None:
+            return frozen.likelihood(batch, poses, num_steps)
         with self.ema_weights():
             feat = self._encode(batch["zero_mean_pts"], train=False)
             score_fn = self._head_score_fn(feat, create_graph=True)

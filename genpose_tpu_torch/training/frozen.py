@@ -19,6 +19,11 @@ memory pool) and replayed after:
   (about 40 kernels a score evaluation, so ~40,000 nodes at 500 steps).
   Replaying a run of steps instead would need the step's time in a device
   buffer and a host loop; one graph keeps the host out of the chain;
+- PC and EDM: likewise the encoder, the head's projections and the whole
+  chain as ONE graph (``diffusion/samplers.py::PCChain``, ``EDMChain``);
+  PC-500 is ~1,000 score evaluations, as Heun-500;
+- a trajectory (``return_process``, Heun, PC or EDM): the same one graph,
+  which also writes the [rows, steps, pose_dim] trajectory;
 - RK45: the encoder, the head's projections and the initial step as one
   graph, one attempt as a second, denoise and re-projection as a third.
   The host replays the attempt graph and reads ``done`` once per attempt,
@@ -26,12 +31,18 @@ memory pool) and replayed after:
 - energies: the encoder, the head's projections and the energy head.
 
 Outside the graphs, eagerly: the PointNet++ geometry (the FPS and ball-query
-wrappers count their launches per Python call), the prior, drawn from the
-caller's generator so that a frozen call consumes it as an eager call does,
-and whatever the caller does with the result (sorting, pooling, whose
-eigen-solve checks its ``info`` on the host).  On the CPU the same
-static-buffer code runs eagerly and nothing is captured.  On a card a
-capture or replay that fails raises; nothing falls back to eager.
+wrappers count their launches per Python call); every draw of the sampler,
+made from the caller's generator by the helpers the eager samplers call
+(``prior_rows``, ``pc_start``, ``pc_draws``, ``edm_draws``), so that a frozen
+call consumes the generator as an eager call does, and copied into the
+program's static buffers with any draws the caller passed in (PC's
+``noise``, EDM's ``latents``); the likelihood, whose divergence is a
+backward pass per pose dimension, run on the frozen copy of the weights as
+JAX runs it unfrozen on its pinned state; and whatever the caller does with
+the result (sorting, pooling, whose eigen-solve checks its ``info`` on the
+host).  On the CPU the same static-buffer code runs eagerly and nothing is
+captured.  On a card a capture or replay that fails raises; nothing falls
+back to eager.
 
 The programs serve only while the agent still holds the weights they
 captured (JAX: ``self._frozen_state is self.state``): ``holds`` compares the
@@ -48,12 +59,20 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from genpose_tpu_torch.diffusion.samplers import ODEChain, RK45, integrate_adaptive, prior_rows
+from genpose_tpu_torch.diffusion.samplers import (
+    RK45,
+    EDMChain,
+    ODEChain,
+    PCChain,
+    edm_draws,
+    integrate_adaptive,
+    ode_likelihood,
+    pc_draws,
+    pc_start,
+    prior_rows,
+)
 from genpose_tpu_torch.models.layers import cast_weights_
-
-# The samplers with frozen programs; PC, EDM, trajectories and the
-# likelihood run only eagerly, and a frozen agent asked for them raises.
-FROZEN_SAMPLERS = ("ode", "ode_adaptive")
+from genpose_tpu_torch.ops.pose import get_pose_dim
 
 # Calls served by frozen programs since import.  A run that resets it and
 # reads it afterwards shows whether a path went through them.
@@ -158,8 +177,9 @@ class _Program:
 class FrozenPrograms:
     """The frozen ``sample`` and ``get_energy`` of one agent, made by
     ``PoseAgent.freeze()``; ``programs`` holds one ``_Program`` per shape key:
-    ``("sample", rows, K, N, sampler, num_steps, T, init_x given)`` and
-    ``("energy", rows, K, N)``."""
+    ``("sample", rows, K, N, sampler, num_steps, T, init_x given,
+    return_process, noise given, latents given)`` and ``("energy", rows, K,
+    N)``."""
 
     def __init__(self, agent):
         self.agent = agent
@@ -189,55 +209,93 @@ class FrozenPrograms:
         else:
             _copy_into(prog.static, inputs)
         dispatches += 1
-        return prog().clone()
+        return _clone(prog())
 
     def sample(self, batch, generator: Optional[torch.Generator], repeat_num: int,
                sampler: str, num_steps: int, T0: Optional[float],
-               init_x: Optional[torch.Tensor], geometry):
-        """``PoseAgent.sample`` through the frozen programs: returns
-        (pred_pose [bs, repeat_num, pose_dim], geometry).  Only the ``ode``
-        (Heun) and ``ode_adaptive`` samplers have frozen programs; any other
-        raises before anything runs."""
-        if sampler not in FROZEN_SAMPLERS:
-            raise NotImplementedError(
-                f"the frozen path has no {sampler!r} sampler (it has {FROZEN_SAMPLERS})")
+               init_x: Optional[torch.Tensor], geometry, return_process: bool = False,
+               noise=None, latents: Optional[torch.Tensor] = None):
+        """``PoseAgent.sample`` through the frozen programs (every sampler of
+        the agent: ``ode``, ``ode_adaptive``, ``pc``, ``edm``): returns
+        (pred_pose [bs, repeat_num, pose_dim], geometry), with
+        ``return_process`` ((trajectory [bs * repeat_num, steps, pose_dim],
+        pred_pose), geometry).  ``noise`` / ``latents`` as the agent's."""
         agent, K = self.agent, repeat_num
         pts, center = batch["zero_mean_pts"], batch["pts_center"]
-        bs = pts.shape[0]
+        bs, dev = pts.shape[0], pts.device
+        rows, pose_mode, sde = bs * K, agent.cfg.pose_mode, agent.sde
+        shape = (rows, get_pose_dim(pose_mode))
         if geometry is None:
             geometry = agent.pts_geometry(pts)
-        T = agent.sde.T if T0 is None else T0
         init_rep = None if init_x is None else init_x.repeat_interleave(K, dim=0)
-        x0 = prior_rows(agent.sde, bs * K, agent.cfg.pose_mode, T, generator, pts.device,
-                        init_rep)
-        twin, sde, pose_mode = self.sample_twin, agent.sde, agent.cfg.pose_mode
+        # the draws, in the order the eager sampler makes them
+        T = sde.T if T0 is None else T0
+        if sampler == "edm":
+            chain = EDMChain(pose_mode, num_steps, dev, sigma_min=sde.eps, sigma_max=sde.T, T0=T0)
+            draws = edm_draws(generator, shape, num_steps, chain.churn, dev, latents)
+            starts = (init_rep, *draws)
+        elif sampler == "pc":
+            T, x0 = pc_start(sde, rows, pose_mode, T0, generator, dev, init_rep)
+            if noise is None:
+                noise = pc_draws(generator, num_steps, shape, dev)
+            starts = (x0, tuple(noise))
+        else:
+            starts = (prior_rows(sde, rows, pose_mode, T, generator, dev, init_rep),)
+        twin = self.sample_twin
 
-        def build(pts, center, geometry, x0):
-            if sampler == "ode":
-                heun = ODEChain(sde, pose_mode, num_steps, T, pts.device)
+        def build(pts, center, geometry, *starts):
+            def encoded():
+                if sampler == "edm":
+                    feat = twin._encode(pts, train=False, geometry=geometry)
+                    return (twin._head_denoise_fn(feat, repeat=K),
+                            center.repeat_interleave(K, dim=0))
+                return twin._score_fn_and_center(pts, center, geometry, K)
 
-                def chain():
-                    score_fn, center_rep = twin._score_fn_and_center(pts, center, geometry, K)
-                    return heun(score_fn, x0, center_rep)
-
-                return [chain], lambda seg: seg()
             if sampler == "ode_adaptive":
-                rk = RK45(sde, pose_mode, T, bs * K, pts.device)
+                rk = RK45(sde, pose_mode, T, rows, dev)
                 held = {}  # score_fn and the repeated centers, made by the first segment
 
                 def start():
-                    held["score_fn"], held["center"] = twin._score_fn_and_center(
-                        pts, center, geometry, K)
-                    rk.start(held["score_fn"], x0)
+                    held["score_fn"], held["center"] = encoded()
+                    rk.start(held["score_fn"], starts[0])
 
                 fns = [start, lambda: rk.attempt(held["score_fn"]),
                        lambda: rk.finish(held["score_fn"], held["center"])]
                 return fns, lambda *segs: integrate_adaptive(*segs, rk.done)[0]
-            raise AssertionError(sampler)
+            if sampler == "ode":
+                heun = ODEChain(sde, pose_mode, num_steps, T, dev)
 
-        key = ("sample", bs, K, pts.shape[1], sampler, num_steps, T, init_x is not None)
-        out = self._run(key, (pts, center, geometry, x0), build)
+                def run(fn, center_rep):
+                    return heun(fn, starts[0], center_rep, return_process)
+            elif sampler == "pc":
+                pc = PCChain(sde, pose_mode, num_steps, T, dev)
+
+                def run(fn, center_rep):
+                    return pc(fn, starts[0], starts[1], center_rep, return_process)
+            else:
+                def run(fn, center_rep):
+                    init, lat, churn = starts
+                    return chain(fn, lat, center_rep, init, churn, return_process)
+
+            return [lambda: run(*encoded())], lambda seg: seg()
+
+        key = ("sample", bs, K, pts.shape[1], sampler, num_steps, T, init_x is not None,
+               return_process, noise is not None, latents is not None)
+        out = self._run(key, (pts, center, geometry, *starts), build)
+        if return_process:
+            return out, geometry
         return out.reshape(bs, K, -1), geometry
+
+    def likelihood(self, batch, poses: torch.Tensor, num_steps: int):
+        """``PoseAgent.likelihood`` on the frozen copy of the weights the
+        sampling programs read, run eagerly (JAX ``agent.py:614-626`` runs
+        it unfrozen on the pinned state): (latent z, bits)."""
+        global dispatches
+        twin = self.sample_twin
+        dispatches += 1
+        feat = twin._encode(batch["zero_mean_pts"], train=False)
+        return ode_likelihood(twin._head_score_fn(feat, create_graph=True), poses, twin.sde,
+                              twin.cfg.pose_mode, num_steps=num_steps)
 
     def get_energy(self, batch, pose_samples: torch.Tensor, t_input: torch.Tensor,
                    geometry) -> torch.Tensor:

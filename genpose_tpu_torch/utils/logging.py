@@ -1,5 +1,5 @@
-"""Scalar logging (JSONL, and TensorBoard when installed) and the train clock
-(counterpart of ``genpose_tpu/utils/logging.py:38-110``).
+"""Scalar logging (JSONL, and TensorBoard when installed), images (TensorBoard
+only) and the train clock (counterpart of ``genpose_tpu/utils/logging.py:38-110``).
 
 Replaces the reference's tensorboardX plumbing (``posenet_agent.py:553-598``)
 and ``TrainClock`` (``utils/genpose_utils.py:70-96``).  Every scalar lands in
@@ -77,6 +77,11 @@ class MetricsLogger:
     def scalars(self, values: Dict[str, float], step: int, prefix: str = ""):
         for k, v in values.items():
             self.scalar(f"{prefix}{k}", float(v), step)
+
+    def image(self, tag: str, img, step: int):
+        """An image [3, H, W] to TensorBoard when it is installed; nothing otherwise."""
+        if self.writer is not None:
+            self.writer.add_image(tag, img, step)
 
     def flush(self):
         self._jsonl.flush()

@@ -127,7 +127,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     for make in (lambda: InferencePipeline(cfg), lambda: PoseAgent(cfg),
                  lambda: build_model(cfg), lambda: PoseAgent(cfg, device="cuda:0"),
                  lambda: trainer.main(["--agent_type", "score", "--data_path", "unread"]),
-                 lambda: trainer.main(["--results_path", "unread.pkl", "--device", "cuda"])):
+                 lambda: trainer.main(["--results_path", "unread.pkl", "--device", "cuda"]),
+                 lambda: trainer.evaluation(torch_config.Config(results_path="unread.pkl"))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     model = build_model(cfg, "score", device="cpu")
@@ -180,33 +181,46 @@ def test_every_config_value_builds(flag, value):
 
 @pytest.mark.parametrize("ask", ["pc", "edm", "return_process", "likelihood"])
 def test_frozen_agent_raises_for_what_it_has_no_program_for(ask):
-    """A frozen agent serves ``ode`` and ``ode_adaptive``; asked for the PC
-    or EDM sampler, a trajectory or a likelihood it raises, naming what was
-    asked, before any work, and never runs eagerly behind the caller's back;
-    once its weights change it is no longer frozen and runs them eagerly."""
+    """A frozen agent serves every sampler, trajectory and likelihood a
+    frozen JAX agent serves (the PC and EDM samplers, ``return_process``,
+    the likelihood): each equals the eager call bit for bit, leaves the
+    generator in eager's state and counts one frozen dispatch; what it has
+    no program for, a sampler name neither package has, raises before any
+    work (the generator untouched, no dispatch counted)."""
     from genpose_tpu_torch.training import frozen
     from genpose_tpu_torch.training.agent import PoseAgent
     from genpose_tpu_torch.utils.weights import perturb_
 
     cfg = torch_config.Config(num_points=32, sde_mode="edm" if ask == "edm" else "ve")
-    agent = PoseAgent(cfg, "score", device="cpu").freeze()
+    agent = PoseAgent(cfg, "score", device="cpu")
+    perturb_(agent.model, seed=1)
     gen = torch.Generator().manual_seed(0)
     batch = {"zero_mean_pts": torch.randn(1, 32, 3, generator=gen) * 0.1,
              "pts_center": torch.zeros(1, 3)}
-    before, dispatches = gen.get_state(), frozen.dispatches
     call = {
-        "pc": lambda: agent.sample(batch, gen, repeat_num=2, sampler="pc", num_steps=3),
-        "edm": lambda: agent.sample(batch, gen, repeat_num=2, sampler="edm", num_steps=3),
-        "return_process": lambda: agent.sample(batch, gen, repeat_num=2, sampler="ode",
-                                               num_steps=3, return_process=True),
-        "likelihood": lambda: agent.likelihood(batch, torch.zeros(1, 9), num_steps=3),
+        "pc": lambda g: agent.sample(batch, g, repeat_num=2, sampler="pc", num_steps=3),
+        "edm": lambda g: agent.sample(batch, g, repeat_num=2, sampler="edm", num_steps=3),
+        "return_process": lambda g: agent.sample(batch, g, repeat_num=2, sampler="ode",
+                                                 num_steps=3, return_process=True),
+        "likelihood": lambda g: agent.likelihood(batch, torch.zeros(1, 9), num_steps=3),
     }[ask]
-    with pytest.raises(NotImplementedError, match="frozen path has no"):
-        call()
+
+    def run():
+        g = torch.Generator().manual_seed(7)
+        out = call(g)
+        return (out if isinstance(out, tuple) else (out,)), g.get_state()
+
+    eager, eager_state = run()
+    agent.freeze()
+    dispatches = frozen.dispatches
+    got, got_state = run()
+    assert frozen.dispatches == dispatches + 1
+    assert all(torch.equal(g, e) and torch.isfinite(g).all() for g, e in zip(got, eager))
+    assert len(got) == len(eager) and torch.equal(got_state, eager_state)
+    before, dispatches = gen.get_state(), frozen.dispatches
+    with pytest.raises(NotImplementedError, match="sampler 'ddim'"):
+        agent.sample(batch, gen, repeat_num=2, sampler="ddim", num_steps=3)
     assert torch.equal(gen.get_state(), before) and frozen.dispatches == dispatches
-    perturb_(agent.model, seed=1)  # the weights change: the agent runs eagerly
-    out = call()
-    assert all(torch.isfinite(o).all() for o in (out if isinstance(out, tuple) else (out,)))
 
 
 @pytest.mark.parametrize("bad", [{"compute_dtype": "float16"}, {"head_dtype": "fp32"},

@@ -7,7 +7,8 @@
   (tail outputs re-zeroed), distillation, energy_with_ranking, ``--eval``,
   ``--results_path`` (never over its input), ``--pred`` and
   ``--likelihood``; the missing ``--model_name`` error; the "not ported"
-  refusals of ``--save_video`` and ``--num_devices > 1``.
+  refusal of ``--num_devices > 1`` (``--save_video`` and the drawing are
+  held in ``tests/test_torch_visualize.py``).
 - Against the JAX package: ``evaluation`` of one shared ``results.pkl``
   within 1e-5 (the same float32 quaternion averaging; eigen-solver and
   arccos rounding), and one ``inference`` batch with the same weights
@@ -16,6 +17,7 @@
   within rtol = atol = 1e-4, the tolerance of ``tests/test_torch_serving.py``.
 """
 
+import functools
 import json
 import os
 import pickle
@@ -231,7 +233,7 @@ def test_results_path_never_overwrites_its_input(tmp_path):
     results = _results(np.random.default_rng(0), 3, 2)
     with open(path, "wb") as f:
         pickle.dump(results, f)
-    trainer.evaluation(TorchConfig(results_path=str(path)))
+    trainer.evaluation(TorchConfig(results_path=str(path)), device="cpu")
     with open(path, "rb") as f:
         assert pickle.load(f).keys() == results.keys()
     assert os.path.exists(str(path) + ".average_results.pkl")
@@ -243,8 +245,7 @@ def test_missing_model_name_fails_loudly(tree, tmp_path):
                      + _flags(tree, "none"), out_dir=str(tmp_path))
 
 
-@pytest.mark.parametrize("flags,match", [(["--save_video", "true"], "save_video"),
-                                         (["--num_devices", "2"], "several cards")])
+@pytest.mark.parametrize("flags,match", [(["--num_devices", "2"], "several cards")])
 def test_unported_options_raise_before_any_work(tmp_path, flags, match):
     missing = str(tmp_path / "no_tree")  # never read: the refusal comes first
     with pytest.raises(NotImplementedError, match=match):
@@ -274,7 +275,8 @@ def test_evaluation_equals_jax(tmp_path):
     results = _results(np.random.default_rng(1), 12, 5)
     errors = {}
     for name, run, cfg in (("jax", jtrainer.evaluation, JaxConfig),
-                           ("port", trainer.evaluation, TorchConfig)):
+                           ("port", functools.partial(trainer.evaluation, device="cpu"),
+                            TorchConfig)):
         path = tmp_path / name / "results.pkl"
         path.parent.mkdir()
         with open(path, "wb") as f:
