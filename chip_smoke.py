@@ -170,14 +170,32 @@ non-zero and prints no result line):
    ``--sampler_mode pc`` with both agents frozen as ``main`` freezes them,
    and ``main_tracking`` on phase 10's frames under ``--sde_mode edm
    --sampler_mode edm``, each against its eager port run (bit for bit,
-   equal metrics), with stage-2 poses/s and frames/s.
+   equal metrics), with stage-2 poses/s and frames/s;
+18. data parallelism through ``genpose_tpu_torch/parallel`` (spawned
+   workers, ``parallel.launch``): (a) a group of one over NCCL, where
+   every helper is the identity and the single process's program runs,
+   (b) two ranks sharing the card over gloo (asked for by name), which run
+   the global BatchNorm, gradient mean and norms, (c) two cards over NCCL
+   where the machine has them; each rank takes DP_SCORE_STEPS score
+   steps and DP_ENERGY_ITERS energy-with-ranking iteration at the released
+   recipe's width (global bs=192, N=1024, repeat 20) and one request of
+   the serving pipeline under the group (bs=64, K=50, Heun-500, then RK45);
+   every arm within DP_TOL of the single-process run of the same work on the
+   same batches, draws and weights, every rank's parameters equal, FPS 3 +
+   ball query 3 launches per step, iteration and request in every rank;
+   seconds per step, the all-reduce's share of a step and peak memory per
+   rank.  Two ranks on one card show that the program is right, not how it
+   scales;
+19. ``utils/benchmarking.py::time_chain_marginal`` (CUDA events) over the
+   three-stage geometry chain (the kernels) and over the frozen float32
+   Heun-500 request, beside phase 12's host-clock seconds for that request.
 
 Checkpoints and metrics of phase 7, the trees and results of phases 9-12,
 the converted checkpoints of phase 14 and the tree and results of phase 15
 go under ``build/chip_smoke/`` in the checkout.  The last lines are the
 training numbers, the evaluation and tracking numbers, the frozen arms, the
 bfloat16 arms, the checkpoint and sampler numbers, the training CLI's
-numbers, phase 16's numbers, phase 17's numbers, the card line, one JSON
+numbers, phase 16's, 17's, 18's and 19's numbers, the card line, one JSON
 line describing each kernel, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -186,6 +204,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2457,7 +2476,9 @@ def training_cli_path(dev, card, in_memory_step_s: float):
           f"points in a cloud {min(unique)})", flush=True)
 
     ckpt_dir = Path(out) / "ckpts" / "cli_score"
-    common = ["--data_path", tree, "--seed", "0"]
+    # one process: the flows metered here run in this one (0, every card,
+    # would spawn a worker per card on a machine with several)
+    common = ["--data_path", tree, "--seed", "0", "--num_devices", "1"]
     # the two-epoch run and the energy run take the process pool, which keeps
     # phase 15 short (an eval epoch's first train batch costs ~2 batches of
     # fetching); the resumed epochs measure both modes, the default first
@@ -3124,6 +3145,353 @@ def frozen_samplers(dev, card, pts: np.ndarray, eager14: dict, nocs: str, seg: s
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: data parallelism through the port's group code (parallel/)
+# ---------------------------------------------------------------------------
+DP_SCORE_STEPS, DP_ENERGY_ITERS = 2, 1  # per arm, at the released recipe's width
+DP_TOL = 1e-3  # phase 18: |a - b| / (1 + |b|) against the single-process run
+DP_MAX_TIE_ROWS = 4  # phase 18: served rows whose energy ranking may differ (near ties)
+
+
+def _scaled(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / (1.0 + np.abs(b)))) if a.size else 0.0
+
+
+def _dp_work(group, spec):
+    """Phase 18, one rank of a group (``group`` None: the single process):
+    DP_SCORE_STEPS score steps and DP_ENERGY_ITERS energy-with-ranking
+    iterations on this rank's rows of the global batches, then one request
+    of the serving pipeline under Heun and under RK45, all inside
+    ``parallel.sharded``; every collective timed between two CUDA events
+    (gloo's include their copies through the host), the launches read
+    around each step, iteration and request.  Returns this rank's numbers
+    and results."""
+    from genpose_tpu_torch.config import Config
+    from genpose_tpu_torch.data.process import process_batch
+    from genpose_tpu_torch.diffusion import samplers
+    from genpose_tpu_torch.ops import ball_query_cuda, fps_cuda
+    from genpose_tpu_torch.parallel import group as parallel
+    from genpose_tpu_torch.runners.serving import InferencePipeline
+    from genpose_tpu_torch.training.agent import PoseAgent
+    from genpose_tpu_torch.training.checkpoints import load_checkpoint
+
+    dev = group.device if group is not None else torch.device(spec["device"])
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    # each collective between two CUDA events on the current stream (the
+    # host clock on the CPU), read once the metered call has synchronised
+    spans = []
+    real_all_reduce = parallel.all_reduce_
+
+    def timed_all_reduce(t, g):
+        if not cuda:
+            t0 = time.perf_counter()
+            out = real_all_reduce(t, g)
+            spans.append(time.perf_counter() - t0)
+            return out
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev[0].record()
+        out = real_all_reduce(t, g)
+        ev[1].record()
+        spans.append(ev)
+        return out
+
+    parallel.all_reduce_ = timed_all_reduce
+    attempts = []  # RK45 attempts of each integration
+    real_integrate = samplers.integrate_adaptive
+
+    def counted_integrate(*args):
+        res = real_integrate(*args)
+        attempts.append(res[1])
+        return res
+
+    samplers.integrate_adaptive = counted_integrate
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def metered(fn):
+        sync()
+        fps_cuda.launches = ball_query_cuda.launches = 0
+        spans.clear()
+        attempts.clear()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        secs = time.perf_counter() - t0
+        reduce_s = sum(e[0].elapsed_time(e[1]) / 1e3 if cuda else e for e in spans)
+        return out, {"s": secs, "all_reduce_s": reduce_s, "collectives": len(spans),
+                     "rk45_attempts": list(attempts),
+                     "launches": {"fps": fps_cuda.launches,
+                                  "ball_query": ball_query_cuda.launches}}
+
+    def agent(cfg, mode, path):
+        a = PoseAgent(cfg, mode, device=dev, steps_per_epoch=100)
+        load_checkpoint(path, a, load_model_only=False)
+        return a
+
+    out = {"steps": [], "serving": {}}
+    cfg = Config(seed=0, sampler_mode=("ode_adaptive",), batch_size=spec["bs"],
+                 num_points=spec["n_points"])
+    score = agent(cfg, "score", spec["ckpt"]["score"])
+    energy = agent(cfg, "energy", spec["ckpt"]["energy"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with parallel.sharded(group):
+        for i, raw in enumerate(spec["raws"]):
+            batch = process_batch(parallel.shard_batch(group, raw), cfg.pose_mode, gen,
+                                  cfg.pts_aug, device=dev)
+            if i < DP_SCORE_STEPS:
+                losses, meter = metered(lambda: score.train_step(batch, gen))
+                kind = "score"
+            else:  # the trained score agent as the teacher, K=5 candidates by RK45
+                def iteration():
+                    cands, geom = score.sample(batch, generator=gen, repeat_num=5,
+                                               num_steps=cfg.sampling_steps,
+                                               return_geometry=True)
+                    return energy.train_step_energy(batch, cands, gen, geometry=geom)
+
+                losses, meter = metered(iteration)
+                kind = "energy"
+            losses = parallel.mean_over_ranks(losses, group)
+            out["steps"].append(dict(meter, kind=kind,
+                                     losses={k: float(v) for k, v in losses.items()}))
+    out["score_state"] = {k: v.detach().cpu().numpy() for k, v in score.params().items()}
+    out["energy_state"] = {k: v.detach().cpu().numpy() for k, v in energy.params().items()}
+    out["stats"] = {k: v.detach().cpu().numpy() for k, v in score.model.state_dict().items()
+                    if "running" in k}
+    for sampler in ("ode", "ode_adaptive"):
+        scfg = Config(batch_size=spec["serve_bs"], eval_repeat_num=spec["K"],
+                      num_points=spec["n_points"], T0=0.55, sampling_steps=spec["heun_steps"],
+                      sampler_mode=(sampler,))
+        pipe = InferencePipeline(scfg, device=dev, group=group,
+                                 score_ckpt=spec["ckpt"]["serve_score"],
+                                 energy_ckpt=spec["ckpt"]["serve_energy"])
+        pred, meter = metered(lambda: pipe.predict(
+            spec["pts"], generator=torch.Generator(device=dev).manual_seed(1)))
+        out["serving"][sampler] = dict(meter, pred=pred)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
+    parallel.all_reduce_ = real_all_reduce
+    samplers.integrate_adaptive = real_integrate
+    return out
+
+
+def _served_gap(a: dict, b: dict, keep: int):
+    """The largest scaled gap between two served results of the same
+    request, and the rows whose ranking differs.  The hypotheses are ranked
+    by energy, rotations and translations apart, so two energies that float
+    noise leaves in a near tie may swap places: each channel's hypotheses
+    and energies are matched by the hypothesis (sorted by its first
+    coordinate) before they are compared, and the pooled and best poses
+    are compared on the rows where both results keep the same top ``keep``
+    and the same best hypothesis in both channels."""
+    d = a["sorted_hypotheses"].shape[-1]
+    gaps, same = [], np.ones(a["pred_pose"].shape[0], bool)
+    for cols, ch in ((slice(0, d - 3), 0), (slice(d - 3, d), 1)):
+        xa, xb = a["sorted_hypotheses"][..., cols], b["sorted_hypotheses"][..., cols]
+        ea, eb = a["energy"][..., ch], b["energy"][..., ch]
+        ida, idb = np.argsort(xa[..., 0], axis=1), np.argsort(xb[..., 0], axis=1)
+        gaps += [_scaled(np.take_along_axis(xa, ida[..., None], 1),
+                         np.take_along_axis(xb, idb[..., None], 1)),
+                 _scaled(np.take_along_axis(ea, ida, 1), np.take_along_axis(eb, idb, 1))]
+        same &= ((ida < keep) == (idb < keep)).all(axis=1) & (
+            np.argmin(ida, axis=1) == np.argmin(idb, axis=1))
+    if same.any():
+        pa, pb = a["pred_pose"][same], b["pred_pose"][same]
+        sign = np.where(np.sum(pa[:, :4] * pb[:, :4], axis=1, keepdims=True) < 0, -1.0, 1.0)
+        gaps += [_scaled(pa[:, :4] * sign, pb[:, :4]), _scaled(pa[:, 4:], pb[:, 4:])]
+        ba, bb = a["best_pose"][same], b["best_pose"][same]
+        sign = np.where(np.sum(ba[:, :4] * bb[:, :4], axis=1, keepdims=True) < 0, -1.0, 1.0)
+        gaps += [_scaled(ba[:, :4] * sign, bb[:, :4]), _scaled(ba[:, 4:], bb[:, 4:])]
+    return max(gaps), int((~same).sum())
+
+
+def _dp_check(label: str, runs, ref, chunks: int) -> dict:
+    """Phase 18: every rank of an arm against the others and against the
+    single-process run ``ref``; FPS 3 and ball query 3 launches per step,
+    iteration and request chunk in every rank."""
+    for r, run in enumerate(runs):
+        for st in run["steps"]:
+            want = {"fps": 3, "ball_query": 3}
+            if st["launches"] != want:
+                raise AssertionError(f"{label} rank {r} {st['kind']}: launches "
+                                     f"{st['launches']}, expected {want}")
+        for sampler, sv in run["serving"].items():
+            want = {"fps": 3 * chunks, "ball_query": 3 * chunks}
+            if sv["launches"] != want:
+                raise AssertionError(f"{label} rank {r} serving {sampler}: launches "
+                                     f"{sv['launches']}, expected {want}")
+        for what in ("score_state", "energy_state"):
+            for k, v in run[what].items():
+                if not np.array_equal(v, runs[0][what][k]):
+                    raise AssertionError(f"{label}: rank {r}'s {what} {k} differs from rank 0's")
+    got = runs[0]
+    gaps = {"losses": max(_scaled([v for st in got["steps"] for v in st["losses"].values()],
+                                  [v for st in ref["steps"] for v in st["losses"].values()]),
+                          0.0)}
+    for what in ("score_state", "energy_state", "stats"):
+        gaps[what] = max(_scaled(v, ref[what][k]) for k, v in got[what].items())
+    ties = {}
+    for sampler, sv in got["serving"].items():
+        gaps[f"serving_{sampler}"], ties[sampler] = _served_gap(
+            sv["pred"], ref["serving"][sampler]["pred"], int(0.6 * K))
+    gaps["tie_rows"] = ties
+    bad = {k: v for k, v in gaps.items() if k != "tie_rows" and not v <= DP_TOL}
+    if any(n > DP_MAX_TIE_ROWS for n in ties.values()):
+        bad["tie_rows"] = ties
+    if bad:
+        att = {"ranks": [[st["rk45_attempts"] for st in r["steps"]] +
+                         [v["rk45_attempts"] for v in r["serving"].values()] for r in runs],
+               "single": [st["rk45_attempts"] for st in ref["steps"]] +
+                         [v["rk45_attempts"] for v in ref["serving"].values()]}
+        raise AssertionError(f"{label}: against the single process {bad} > {DP_TOL} "
+                             f"(all gaps {gaps}; RK45 attempts {att})")
+    return gaps
+
+
+def data_parallel(dev, card):
+    """Phase 18: the group code on the card.  NCCL refuses two ranks on one
+    card, so: (a) a group of one over NCCL (the single process's program
+    under the group's set-up: every helper is the identity at world 1);
+    (b) two ranks sharing the card over gloo (asked for by name; CUDA
+    tensors through the host); (c) two cards over NCCL where the machine
+    has them.  Each arm (spawned workers,
+    ``parallel.launch``) against the single-process run of the same work on
+    the same global batches, draws and weights.  Two ranks on one card
+    measure that the program is right, not how it scales."""
+    import tempfile
+
+    from genpose_tpu_torch.config import Config
+    from genpose_tpu_torch.parallel import group as parallel
+    from genpose_tpu_torch.training.agent import PoseAgent
+    from genpose_tpu_torch.training.checkpoints import save_checkpoint
+    from genpose_tpu_torch.utils.weights import perturb_
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(18)
+    cfg = Config(seed=0)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=str(OUT_DIR)) as tmp:
+        ckpt = {}
+        for name, mode, seed in (("score", "score", 11), ("energy", "energy", 12),
+                                 ("serve_score", "score", 1), ("serve_energy", "energy", 2)):
+            a = PoseAgent(cfg, mode, device=dev)
+            perturb_(a.model, seed=seed)
+            ckpt[name] = save_checkpoint(os.path.join(tmp, name), a, epoch=0)
+            del a
+        gen = torch.Generator(device=dev).manual_seed(5)
+        pts = object_clouds(gen, B, N_POINTS, dev).cpu().numpy()
+        pts += rng.uniform([-0.3, -0.3, 0.5], [0.3, 0.3, 1.2], size=(B, 1, 3)).astype(np.float32)
+        spec = {"device": "cuda", "bs": B_TRAIN, "n_points": N_POINTS, "serve_bs": B, "K": K,
+                "heun_steps": HEUN_STEPS, "ckpt": ckpt, "pts": pts,
+                "raws": _raw_batches(rng, DP_SCORE_STEPS + DP_ENERGY_ITERS, B_TRAIN, N_POINTS)}
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ref = _dp_work(None, spec)
+        ref_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        arms = {"a_nccl_w1": (1, None), "b_gloo_w2_one_card": (2, "gloo")}
+        if torch.cuda.device_count() >= 2:
+            arms["c_nccl_w2"] = (2, None)
+        result = {"single_process": dict(_dp_summary(ref), peak_mem_gb=ref["peak_mem_gb"]),
+                  "single_process_s": ref_s}
+        for name, (world, backend) in arms.items():
+            t0 = time.perf_counter()
+            runs = parallel.launch(_dp_work, world, "cuda", args=(spec,), backend=backend)
+            arm_s = time.perf_counter() - t0
+            gaps = _dp_check(f"phase 18 {name}", runs, ref, chunks=1)
+            result[name] = dict(_dp_summary(runs[0]), world=world,
+                                backend=backend or "nccl", gaps=gaps, wall_s=arm_s,
+                                peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in runs],
+                                launches_per_rank=[
+                                    {"steps": [st["launches"] for st in r["steps"]],
+                                     "serving": {s: v["launches"]
+                                                 for s, v in r["serving"].items()}}
+                                    for r in runs])
+            s = result[name]
+            print(f"phase 18 {name} (world {world}, {s['backend']}; global bs={B_TRAIN}, "
+                  f"N={N_POINTS}, repeat {cfg.repeat_num}; serving bs={B}, K={K}): score steps "
+                  f"{[round(x, 4) for x in s['score_step_s']]} s (all-reduce share "
+                  f"{[round(x, 4) for x in s['score_all_reduce_share']]}), energy iteration "
+                  f"{s['energy_iter_s']:.4f} s (share {s['energy_all_reduce_share']:.4f}); "
+                  f"serving Heun-{HEUN_STEPS} {s['serving_s']['ode']:.4f} s, RK45 "
+                  f"{s['serving_s']['ode_adaptive']:.4f} s; peak memory per rank "
+                  f"{[round(x, 3) for x in s['peak_mem_gb_per_rank']]} GB; launches per rank "
+                  f"{s['launches_per_rank']}; against one process {gaps} (<= {DP_TOL}); "
+                  f"arm wall {arm_s:.1f} s; {card}", flush=True)
+    sp = result["single_process"]
+    print(f"phase 18 single process: score steps {[round(x, 4) for x in sp['score_step_s']]} s, "
+          f"energy iteration {sp['energy_iter_s']:.4f} s, serving {sp['serving_s']}; peak "
+          f"memory {sp['peak_mem_gb']:.3f} GB; {card}", flush=True)
+    result["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 18 took {result['seconds']:.1f} s", flush=True)
+    return result
+
+
+def _dp_summary(run) -> dict:
+    score = [st for st in run["steps"] if st["kind"] == "score"]
+    energy = [st for st in run["steps"] if st["kind"] == "energy"]
+    return {"score_step_s": [st["s"] for st in score],
+            "score_all_reduce_share": [st["all_reduce_s"] / st["s"] for st in score],
+            "energy_iter_s": energy[0]["s"],
+            "energy_all_reduce_share": energy[0]["all_reduce_s"] / energy[0]["s"],
+            "losses": [st["losses"] for st in run["steps"]],
+            "serving_s": {s: v["s"] for s, v in run["serving"].items()},
+            "serving_all_reduce_s": {s: v["all_reduce_s"] for s, v in run["serving"].items()}}
+
+
+# ---------------------------------------------------------------------------
+# phase 19: utils/benchmarking.py's chained timer on the card
+# ---------------------------------------------------------------------------
+CHAIN_ITERS = {"geometry": 20, "frozen_heun": 2}
+
+
+def benchmarking_module(dev, card, pts: np.ndarray, frozen_heun_s: float):
+    """Phase 19: ``time_chain_marginal`` (CUDA events, chains of n and 2n
+    calls interleaved, min of 3) over the three-stage geometry chain of the
+    serving batch (FPS + ball query + grouping; the kernels) and over the
+    frozen float32 Heun-500 request (``InferencePipeline._run``), beside
+    phase 12's host-clock seconds for the same request."""
+    from genpose_tpu_torch.models.pointnet2 import cls_msg_geometry
+    from genpose_tpu_torch.ops import ball_query_cuda, fps_cuda
+    from genpose_tpu_torch.utils import benchmarking
+
+    t_phase = time.perf_counter()
+    x = torch.from_numpy(pts).to(dev)
+    x = x - x.mean(dim=1, keepdim=True)
+    out = {}
+    fps_cuda.launches = ball_query_cuda.launches = 0
+    per, env = benchmarking.time_chain_marginal(
+        lambda p, g: cls_msg_geometry(p, "light"), x, None, CHAIN_ITERS["geometry"])
+    calls = 1 + 3 * 3 * CHAIN_ITERS["geometry"]  # warm-up chain, then 3 x (n + 2n)
+    launches = {"fps": fps_cuda.launches, "ball_query": ball_query_cuda.launches}
+    if launches != {"fps": 3 * calls, "ball_query": 3 * calls}:
+        raise AssertionError(f"phase 19 geometry chain: launches {launches}, expected "
+                             f"{3 * calls} each")
+    out["geometry"] = {"per_iter_s": per, "envelope_s": env, "iters": CHAIN_ITERS["geometry"],
+                       "launches": launches}
+    pipe = make_pipeline(dev, sampler_mode=("ode",)).freeze().warmup()
+    per, env = benchmarking.time_chain_marginal(lambda p, g: pipe._run(p, g), x,
+                                                torch.Generator(device=dev).manual_seed(1),
+                                                CHAIN_ITERS["frozen_heun"])
+    out["frozen_heun"] = {"per_iter_s": per, "envelope_s": env,
+                          "iters": CHAIN_ITERS["frozen_heun"],
+                          "phase12_host_clock_s": frozen_heun_s}
+    del pipe
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 19 time_chain_marginal (CUDA events): geometry chain (bs={B}, N={N_POINTS}, "
+          f"light, 3 FPS + 3 ball query) {out['geometry']['per_iter_s'] * 1e3:.4f} ms per call, "
+          f"envelope {out['geometry']['envelope_s'] * 1e3:.4f} ms; frozen f32 Heun-{HEUN_STEPS} "
+          f"request (bs={B}, K={K}) {out['frozen_heun']['per_iter_s']:.4f} s per call, "
+          f"envelope {out['frozen_heun']['envelope_s'] * 1e3:.3f} ms (phase 12 host clock "
+          f"{frozen_heun_s:.4f} s); took {out['seconds']:.1f} s; {card}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3214,6 +3582,10 @@ def main() -> int:
     phase17 = frozen_samplers(dev, card, pts, phase14["samplers"], nocs, seg,
                               evaluation["chunks"], evaluation["instances"])
     torch.cuda.empty_cache()
+    phase18 = data_parallel(dev, card)
+    torch.cuda.empty_cache()
+    phase19 = benchmarking_module(dev, card, pts, frozen_arms["serving"]["ode"]["frozen_s"])
+    torch.cuda.empty_cache()
 
     fps_launches = results["ode"][1]["fps"]
     bq_launches = results["ode"][1]["ball_query"]
@@ -3237,8 +3609,9 @@ def main() -> int:
         """A kernel's launches in each run of the evaluation and tracking
         paths, of the frozen arms of phase 12, of the bfloat16 arms of
         phase 13, of the checkpoint and sampler paths of phase 14, of the
-        training CLI's runs of phase 15, of phase 16's configurations and of
-        phase 17's frozen samplers."""
+        training CLI's runs of phase 15, of phase 16's configurations, of
+        phase 17's frozen samplers, of phase 18's ranks and of phase 19's
+        chained geometry."""
         fz = frozen_arms
         p17 = phase17
         return {"evaluation_stage2_launches": evaluation["launches"]["stage 2"][k],
@@ -3282,7 +3655,14 @@ def main() -> int:
                     for a in ("eager", "frozen")},
                 "edm_tracking_launches": {
                     a: p17["runners"]["tracking_edm"][a]["launches"][k]
-                    for a in ("eager", "frozen")}}
+                    for a in ("eager", "frozen")},
+                "data_parallel_launches_per_rank": {
+                    arm: [{"steps": [st[k] for st in r["steps"]],
+                           "serving": {s: v[k] for s, v in r["serving"].items()}}
+                          for r in res["launches_per_rank"]]
+                    for arm, res in phase18.items()
+                    if isinstance(res, dict) and "launches_per_rank" in res},
+                "benchmark_geometry_chain_launches": phase19["geometry"]["launches"][k]}
 
     kernels = [
         summary("fps", "genpose_tpu_torch/csrc/fps.cu", "genpose_tpu/ops/fps_pallas.py:75",
@@ -3309,6 +3689,8 @@ def main() -> int:
     print(json.dumps({"new_configurations": {k: v for k, v in phase16.items()
                                              if k not in ("fps_rows", "bq_rows")}}), flush=True)
     print(json.dumps({"frozen_samplers": phase17}), flush=True)
+    print(json.dumps({"data_parallel": phase18}), flush=True)
+    print(json.dumps({"benchmarking": phase19}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -22,6 +22,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from genpose_tpu_torch.config import PtsAugConfig
+from genpose_tpu_torch.parallel import group as parallel
 
 
 def _to_object(R, t, pc):
@@ -99,7 +100,8 @@ def data_augment(params: PtsAugConfig, PC, gt_R, gt_t, gt_s, mean_shape, sym, au
     them, else drawn from ``generator``."""
     bs = PC.shape[0]
     if draws is None:
-        draws = augment_draws(bs, PC.shape[1], generator, PC.device)
+        draws = parallel.local_draw(
+            lambda n: augment_draws(n, PC.shape[1], generator, PC.device), bs)
 
     # bbox scaling
     flag = draws["bb"] < params.aug_bb_pro

@@ -20,6 +20,11 @@ and the dataset draws from ``(seed, index, visit)``
 (``data/nocs.py::NOCSDataset.fetch``), so both modes give the same batches,
 and the JAX loader's for the same seed.  Batches are numpy: the training
 loop moves them to the device, and forked workers touch nothing of CUDA.
+
+With ``shard=(rank, world)`` (the trainer under a data-parallel group) the
+loader yields rank ``rank``'s contiguous block of each global batch: the
+same permutation, ``drop_last`` and visit numbers as one loader over the
+global batch, but only this rank's samples are fetched.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import multiprocessing
 import queue
 import threading
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -74,7 +79,8 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, num_workers: int = 8,
                  drop_last: bool = False, indices: Optional[np.ndarray] = None,
-                 prefetch: int = 2, seed: int = 0, workers_mode: str = "thread"):
+                 prefetch: int = 2, seed: int = 0, workers_mode: str = "thread",
+                 shard: Optional[Tuple[int, int]] = None):
         if workers_mode not in ("thread", "process"):
             raise ValueError(f"workers_mode={workers_mode!r} not in ('thread', 'process')")
         if workers_mode == "process" and not hasattr(dataset, "fetch"):
@@ -94,6 +100,7 @@ class DataLoader:
         self.rng = np.random.default_rng(seed)
         self._visits: Dict[int, int] = {}  # per index, across epochs
         self._pool: Optional[ProcessPoolExecutor] = None
+        self.shard = shard
 
     def _ensure_pool(self) -> ProcessPoolExecutor:
         if self._pool is None:
@@ -141,9 +148,23 @@ class DataLoader:
             out.append(v)
         return out
 
+    def _local(self, rows: List[np.ndarray]) -> List[np.ndarray]:
+        """This rank's block of each global batch's rows (all without a shard)."""
+        if self.shard is None:
+            return rows
+        rank, world = self.shard
+        out = []
+        for r in rows:
+            if len(r) % world:
+                raise ValueError(f"a batch of {len(r)} samples does not divide over {world} ranks")
+            per = len(r) // world
+            out.append(r[rank * per:(rank + 1) * per])
+        return out
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         batches = self._batches()
-        visits = self._assign_visits(batches)
+        visits = self._local(self._assign_visits(batches))
+        batches = self._local(batches)
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         sentinel = object()
         stop = threading.Event()
@@ -206,18 +227,20 @@ class DataLoader:
             t.join()
 
 
-def get_data_loaders_from_cfg(cfg, data_type=("train", "val", "test")):
+def get_data_loaders_from_cfg(cfg, data_type=("train", "val", "test"),
+                              shard: Optional[Tuple[int, int]] = None):
     """Loaders per split (ref ``datasets_genpose.py:587-640``): train from
     ``cfg.train_source`` (CAMERA+Real resampled 3:1), val from
     ``cfg.val_source`` and test from ``cfg.test_source`` in test mode with
     ``mini_bs`` batches.  A train loader drops its last ragged batch when
-    the split holds at least one full batch."""
+    the split holds at least one full batch.  ``shard=(rank, world)``: the
+    train loader yields that rank's rows of each global batch."""
     from genpose_tpu_torch.data.nocs import NOCSDataset
 
     loaders = {}
     rng = np.random.default_rng(cfg.seed)
 
-    def build(source, mode, batch_size, percentage):
+    def build(source, mode, batch_size, percentage, shard=None):
         ds = NOCSDataset(data_dir=cfg.data_path, source=source, mode=mode, n_pts=cfg.num_points,
                          img_size=cfg.img_size, per_obj=cfg.per_obj, dzi_params=cfg.dzi,
                          deform_2d_params=cfg.deform_2d, seed=cfg.seed)
@@ -230,11 +253,11 @@ def get_data_loaders_from_cfg(cfg, data_type=("train", "val", "test")):
         return DataLoader(ds, batch_size=batch_size, shuffle=(mode == "train"),
                           num_workers=cfg.num_workers if mode == "train" else 1,
                           drop_last=mode == "train" and n_idx >= batch_size, indices=indices,
-                          seed=cfg.seed, workers_mode=cfg.loader_mode)
+                          seed=cfg.seed, workers_mode=cfg.loader_mode, shard=shard)
 
     if "train" in data_type:
         loaders["train_loader"] = build(cfg.train_source, "train", cfg.batch_size,
-                                        cfg.percentage_data_for_train)
+                                        cfg.percentage_data_for_train, shard)
     if "val" in data_type:
         loaders["val_loader"] = build(cfg.val_source, "test", cfg.mini_bs,
                                       cfg.percentage_data_for_val)

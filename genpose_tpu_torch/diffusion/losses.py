@@ -8,7 +8,9 @@ to match (``score_fn`` is built with ``tile=repeat_num``).
 
 The draws, t ~ U(eps, 1) [repeat, bs, 1] and z ~ N(0, I) [repeat, bs,
 pose_dim], come from a ``torch.Generator`` or are passed in (``noise``), so
-that a test can hand both packages the same numbers.
+that a test can hand both packages the same numbers.  Inside
+``parallel.sharded`` the draws of the global batch are made and this rank's
+rows kept; passed-in draws are this rank's own.
 
 The EDM loss (``sde_mode="edm"``, JAX ``losses.py:73-112``) takes a
 ``denoise_fn(x, sigma) -> denoised pose`` instead, with sigma log-uniform
@@ -23,6 +25,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from genpose_tpu_torch.diffusion.sde import SDE
+from genpose_tpu_torch.parallel import group as parallel
 
 
 def draw_dsm_noise(sde: SDE, repeat_num: int, bs: int, pose_dim: int,
@@ -63,7 +66,9 @@ def dsm_loss_repeated(score_fn: Callable, gt_pose: torch.Tensor, sde: SDE, repea
     """
     bs, pose_dim = gt_pose.shape
     if noise is None:
-        noise = draw_dsm_noise(sde, repeat_num, bs, pose_dim, generator, gt_pose.device)
+        noise = parallel.local_draw(
+            lambda n: draw_dsm_noise(sde, repeat_num, n, pose_dim, generator, gt_pose.device),
+            bs, axis=1)
     t, z = noise
     if t.shape != (repeat_num, bs, 1) or z.shape != (repeat_num, bs, pose_dim):
         raise ValueError(f"noise shapes {tuple(t.shape)}, {tuple(z.shape)} do not fit "
@@ -117,8 +122,9 @@ def edm_dsm_loss_repeated(denoise_fn: Callable, gt_pose: torch.Tensor, repeat_nu
     takes the ``[repeat * bs]`` stack, draw r's rows at ``r * bs + b``."""
     bs, pose_dim = gt_pose.shape
     if noise is None:
-        noise = draw_edm_noise(repeat_num, bs, pose_dim, sigma_min, sigma_max, generator,
-                               gt_pose.device)
+        noise = parallel.local_draw(
+            lambda n: draw_edm_noise(repeat_num, n, pose_dim, sigma_min, sigma_max, generator,
+                                     gt_pose.device), bs, axis=1)
     sigma, z = noise
     if sigma.shape != (repeat_num, bs, 1) or z.shape != (repeat_num, bs, pose_dim):
         raise ValueError(f"noise shapes {tuple(sigma.shape)}, {tuple(z.shape)} do not fit "

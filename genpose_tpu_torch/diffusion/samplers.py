@@ -56,6 +56,7 @@ import torch
 
 from genpose_tpu_torch.diffusion.sde import SDE
 from genpose_tpu_torch.ops.pose import get_pose_dim, normalize_rotation
+from genpose_tpu_torch.parallel import group as parallel
 from genpose_tpu_torch.utils.device import resolve_device
 
 
@@ -125,9 +126,11 @@ def _sampler_device(device, pts_center: Optional[torch.Tensor],
 def prior_rows(sde: SDE, batch_size: int, pose_mode: str, T: float,
                generator: Optional[torch.Generator], device,
                init_x: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The start of the integration: a prior draw at T, added to ``init_x`` if given."""
-    x = sde.prior((batch_size, get_pose_dim(pose_mode)), T=T, generator=generator,
-                  device=device)
+    """The start of the integration: a prior draw at T, added to ``init_x`` if
+    given (inside ``parallel.sharded``, this rank's rows of the global draw)."""
+    x = parallel.local_draw(
+        lambda n: sde.prior((n, get_pose_dim(pose_mode)), T=T, generator=generator,
+                            device=device), batch_size)
     return x if init_x is None else init_x + x
 
 
@@ -228,8 +231,8 @@ def _lincomb(coefs, ks):
     return acc
 
 
-def _rms(v: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.mean(v ** 2))
+def _mean_sq(v: torch.Tensor) -> torch.Tensor:
+    return torch.mean(v ** 2)
 
 
 class RK45:
@@ -237,11 +240,24 @@ class RK45:
     over ``rows`` poses: ``start`` selects the initial step, each
     ``attempt`` takes one step of size -h and accepts or rejects it on the
     device, ``finish`` denoises and re-projects.  The state ``t, x, f, h,
-    rejected, done`` lives in tensors made here, which ``start`` and
-    ``attempt`` write in place."""
+    rejected, done`` lives in tensors made here, which the phases write in
+    place.
+
+    Each RMS norm is over every row of the integration, so ``start`` and
+    ``attempt`` are split into phases (``start_phases``, ``attempt_phases``)
+    at the norms: a phase leaves its rows' mean squares in ``ms`` and
+    ``reduce`` makes them means over every rank's rows inside
+    ``parallel.sharded`` (nothing elsewhere), so that each rank takes the
+    step size a single process takes over the global batch (JAX keeps the
+    mean global under its mesh).  The frozen programs capture each phase
+    as a graph and call ``reduce`` between them, outside any graph."""
+
+    # the slots of ``ms`` each phase of ``start`` / ``attempt`` leaves for the next
+    START_SLOTS = ((0, 2), (2, 3))
+    ATTEMPT_SLOTS = ((3, 4),)
 
     def __init__(self, sde: SDE, pose_mode: str, T: float, rows: int, device):
-        self.sde, self.pose_mode, self.T = sde, pose_mode, T
+        self.sde, self.pose_mode, self.T, self.rows = sde, pose_mode, T, rows
         self.T_t = _scalar(T, device)
         self.eps_t = _scalar(sde.eps, device)
         self.h_min0 = _scalar(1e-6, device)
@@ -250,39 +266,58 @@ class RK45:
         shape = (rows, get_pose_dim(pose_mode))
         self.x = torch.zeros(shape, device=device)
         self.f = torch.zeros(shape, device=device)
+        self.x_new = torch.zeros(shape, device=device)
+        self.f_new = torch.zeros(shape, device=device)
         self.t = _scalar(T, device)
         self.h = _scalar(0.0, device)
+        self.h_try = _scalar(0.0, device)
+        # mean squares: x0/scale0, f0/scale0, (f1 - f0)/scale0, the step's error
+        self.ms = torch.zeros(4, device=device)
         self.rejected = torch.zeros((), dtype=torch.bool, device=device)
         self.done = torch.zeros((), dtype=torch.bool, device=device)
 
     def _dx(self, score_fn, x, t):
         return _ode_dx(score_fn, self.sde, x, t)
 
-    def start(self, score_fn: Callable, x0: torch.Tensor) -> None:
-        """scipy's ``_select_initial_step`` (direction -1) from x0 at T."""
-        T, atol, rtol = self.T, _ATOL, _RTOL
+    def reduce(self, lo: int, hi: int) -> None:
+        parallel.mean_over_rows_(self.ms[lo:hi], self.rows)
+
+    def _scale0(self):
+        return _ATOL + _RTOL * torch.abs(self.x)
+
+    def start_a(self, score_fn: Callable, x0: torch.Tensor) -> None:
+        """scipy's ``_select_initial_step`` (direction -1) from x0 at T, part 1."""
         f0 = self._dx(score_fn, x0, self.T_t)
-        scale0 = atol + rtol * torch.abs(x0)
-        d0 = _rms(x0 / scale0)
-        d1 = _rms(f0 / scale0)
+        self.x.copy_(x0)
+        self.f.copy_(f0)
+        scale0 = self._scale0()
+        self.ms[0:2].copy_(torch.stack([_mean_sq(x0 / scale0), _mean_sq(f0 / scale0)]))
+
+    def start_b(self, score_fn: Callable) -> None:
+        x0, f0, scale0 = self.x, self.f, self._scale0()
+        d0, d1 = torch.sqrt(self.ms[0]), torch.sqrt(self.ms[1])
         h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5), self.h_min0, 0.01 * d0 / d1)
+        self.h_try.copy_(h0)
         y1 = x0 - h0 * f0  # backward direction
-        f1 = self._dx(score_fn, y1, T - h0)
-        d2 = _rms((f1 - f0) / scale0) / h0
+        f1 = self._dx(score_fn, y1, self.T - h0)
+        self.ms[2].copy_(_mean_sq((f1 - f0) / scale0))
+
+    def start_c(self) -> None:
+        h0 = self.h_try
+        d1 = torch.sqrt(self.ms[1])
+        d2 = torch.sqrt(self.ms[2]) / h0
         h1 = torch.where((d1 <= 1e-15) & (d2 <= 1e-15),
                          torch.clamp(h0 * 1e-3, min=1e-6),
                          (0.01 / torch.maximum(d1, d2)) ** 0.2)
         self.h.copy_(torch.minimum(torch.minimum(100.0 * h0, h1), self.h_max0))
         self.t.copy_(self.T_t)
-        self.x.copy_(x0)
-        self.f.copy_(f0)
         self.rejected.fill_(False)
         self.done.fill_(False)
 
-    def attempt(self, score_fn: Callable) -> None:
-        """One DP45 step of size -h (never past eps), accepted if its RMS
-        error is at most 1; h grows or shrinks by scipy's factor."""
-        eps, atol, rtol = self.sde.eps, _ATOL, _RTOL
+    def attempt_a(self, score_fn: Callable) -> None:
+        """One DP45 step of size -h (never past eps), part 1: the stages,
+        the new state and the mean square of its scaled error."""
+        eps = self.sde.eps
         x, f, t = self.x, self.f, self.t
         h = torch.minimum(self.h, t - eps)
         ks = [f]
@@ -291,8 +326,17 @@ class RK45:
         x_new = x - h * _lincomb(_DP_B, ks)
         f_new = self._dx(score_fn, x_new, t - h)  # FSAL stage
         err = _lincomb(_DP_E, ks + [f_new]) * (-h)
-        scale = atol + rtol * torch.maximum(torch.abs(x), torch.abs(x_new))
-        err = _rms(err / scale)
+        scale = _ATOL + _RTOL * torch.maximum(torch.abs(x), torch.abs(x_new))
+        self.ms[3].copy_(_mean_sq(err / scale))
+        self.x_new.copy_(x_new)
+        self.f_new.copy_(f_new)
+        self.h_try.copy_(h)
+
+    def attempt_b(self) -> None:
+        """Part 2: accepted if the RMS error is at most 1; h grows or shrinks
+        by scipy's factor."""
+        eps, t, h = self.sde.eps, self.t, self.h_try
+        err = torch.sqrt(self.ms[3])
         accept = err <= 1.0
         factor = torch.where(
             err == 0.0, self.max_factor,
@@ -300,10 +344,33 @@ class RK45:
         factor = torch.where(accept & self.rejected, torch.clamp(factor, max=1.0), factor)
         self.done.copy_(accept & (t - h <= eps + 1e-12))
         self.t.copy_(torch.where(accept, t - h, t))
-        self.x.copy_(torch.where(accept, x_new, x))
-        self.f.copy_(torch.where(accept, f_new, f))
+        self.x.copy_(torch.where(accept, self.x_new, self.x))
+        self.f.copy_(torch.where(accept, self.f_new, self.f))
         self.h.copy_(h * factor)
         self.rejected.copy_(~accept)
+
+    def start_phases(self, score_fn: Callable, x0: torch.Tensor):
+        return [lambda: self.start_a(score_fn, x0), lambda: self.start_b(score_fn),
+                self.start_c]
+
+    def attempt_phases(self, score_fn: Callable):
+        return [lambda: self.attempt_a(score_fn), self.attempt_b]
+
+    def chain(self, phases, slots) -> Callable:
+        """One call of ``phases`` in order, ``reduce`` of each slot range of
+        ``slots`` after the phase it follows."""
+        def run():
+            for i, phase in enumerate(phases):
+                phase()
+                if i < len(slots):
+                    self.reduce(*slots[i])
+        return run
+
+    def start(self, score_fn: Callable, x0: torch.Tensor) -> None:
+        self.chain(self.start_phases(score_fn, x0), self.START_SLOTS)()
+
+    def attempt(self, score_fn: Callable) -> None:
+        self.chain(self.attempt_phases(score_fn), self.ATTEMPT_SLOTS)()
 
     def finish(self, score_fn: Callable, pts_center: torch.Tensor) -> torch.Tensor:
         # the reference's adaptive denoise step is (1-eps)/1000 (samplers.py:216)
@@ -392,8 +459,11 @@ def pc_draws(generator: Optional[torch.Generator], num_steps: int, shape, device
     numbers (on the card Philox advances its offset per call, rounded up;
     on the CPU ``normal_`` fills blocks of 16)."""
     draws = torch.empty((num_steps, 2, *shape), device=device)
+    rows, rest = shape[0], tuple(shape[1:])
     for i in range(num_steps):
-        draws[i] = torch.randn((2, *shape), generator=generator, device=device)
+        draws[i] = parallel.local_draw(
+            lambda n: torch.randn((2, n, *rest), generator=generator, device=device),
+            rows, axis=1)
     return draws[:, 0], draws[:, 1]
 
 
@@ -423,7 +493,8 @@ class PCChain:
             t = self.ts[i]
             # corrector (Langevin MCMC)
             grad = _score(score_fn, x, t)
-            grad_norm = torch.mean(torch.linalg.norm(grad, dim=-1))
+            grad_norm = parallel.mean_over_rows_(
+                torch.mean(torch.linalg.norm(grad, dim=-1)), grad.shape[0])
             langevin_step = torch.where(
                 grad_norm > 1e-8,
                 2.0 * (self.snr * self.noise_norm / torch.clamp(grad_norm, min=1e-8)) ** 2, 0.0)
@@ -504,7 +575,8 @@ def ode_likelihood(score_fn: Callable, x: torch.Tensor, sde: SDE, pose_mode: str
     bs, pose_dim = x.shape
     dev = x.device
     if not exact_divergence and epsilon is None:
-        epsilon = torch.randn((bs, pose_dim), generator=generator, device=dev)
+        epsilon = parallel.local_draw(
+            lambda n: torch.randn((n, pose_dim), generator=generator, device=dev), bs)
     ts = _linspace(sde.eps, sde.T, num_steps, dev)
 
     def dx_and_div(x, t):
@@ -559,12 +631,17 @@ def edm_draws(generator: Optional[torch.Generator], shape, num_steps: int, churn
     None): each one not given is drawn from ``generator``, the latents
     first, then one ``torch.randn(shape)`` a step, as the loop of steps drew
     them; without churn (``S_churn`` = 0, the default) no noise is drawn."""
+    rows, rest = shape[0], tuple(shape[1:])
+
+    def draw(n):
+        return torch.randn((n, *rest), generator=generator, device=device)
+
     if latents is None:
-        latents = torch.randn(shape, generator=generator, device=device)
+        latents = parallel.local_draw(draw, rows)
     if churn and noise is None:
         noise = torch.empty((num_steps, *shape), device=device)
         for n in range(num_steps):
-            noise[n] = torch.randn(shape, generator=generator, device=device)
+            noise[n] = parallel.local_draw(draw, rows)
     return latents, (noise if churn else None)
 
 

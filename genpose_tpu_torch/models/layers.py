@@ -14,6 +14,8 @@
   ``F.linear`` keeps cuDNN (and its TF32 default) off the path.  BatchNorm
   normalises in float32 and casts back, as the JAX package's
   ``TorchBatchNorm`` does; in eval mode it uses its running statistics.
+  Inside ``parallel.sharded`` train-mode BatchNorm takes the statistics of
+  the global batch (``global_batch_norm``).
 - ``SplitTail`` / ``FusedTails``: the fusion tails with the ``pts_feat``
   projection split off, so samplers compute it once per request
   (``precompute``) and reuse it at every step (``from_proj``).
@@ -43,6 +45,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from genpose_tpu_torch.parallel import group as parallel
 
 
 class GaussianFourierProjection(nn.Module):
@@ -137,15 +141,81 @@ class SharedMLP(nn.Module):
 
 def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
     """``bn`` over the last axis of ``x`` [..., C], normalised in float32
-    and cast back to ``x``'s dtype."""
-    return bn(x.float().reshape(-1, x.shape[-1])).reshape(x.shape).to(x.dtype)
+    and cast back to ``x``'s dtype; in train mode inside
+    ``parallel.sharded(group)`` of two or more ranks over the group's
+    global batch."""
+    rows = x.float().reshape(-1, x.shape[-1])
+    group = parallel.active()
+    if group is None or group.world == 1 or not bn.training:
+        y = bn(rows)
+    else:
+        y = global_batch_norm(bn, rows, group)
+    return y.reshape(x.shape).to(x.dtype)
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch normalisation of rows [n, C] over every rank of a
+    group, its backward written out (SyncBatchNorm's algorithm in plain
+    PyTorch): the forward all-reduces the per-channel sum and row count,
+    then the sum of squared deviations; the backward all-reduces the sums
+    of the output gradient and of its product with the normalised input,
+    so the input gradient is that of the global statistics.  Saves the
+    input, mean and inverse deviation only, as ``nn.BatchNorm1d`` does."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        c = x.shape[1]
+        stats = parallel.all_reduce_(torch.cat([x.sum(0), x.new_full((1,), x.shape[0])]), group)
+        n = stats[c:]
+        mean = stats[:c] / n
+        d = x - mean
+        var = parallel.all_reduce_((d * d).sum(0), group) / n
+        invstd = 1.0 / torch.sqrt(var + eps)
+        y = d * invstd * weight + bias  # as PyTorch's CUDA kernel normalises
+        ctx.save_for_backward(x, mean, invstd, weight)
+        ctx.group, ctx.n = group, n
+        ctx.mark_non_differentiable(mean, var, n)
+        return y, mean, var, n
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gy, _mean, _var, _n):
+        x, mean, invstd, weight = ctx.saved_tensors
+        c = x.shape[1]
+        xhat = (x - mean) * invstd
+        sum_dy, sum_dy_xhat = gy.sum(0), (gy * xhat).sum(0)
+        total = parallel.all_reduce_(torch.cat([sum_dy, sum_dy_xhat]), ctx.group) / ctx.n
+        gx = (weight * invstd) * (gy - total[:c] - xhat * total[c:])
+        return gx, sum_dy_xhat, sum_dy, None, None
+
+
+def global_batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor, group) -> torch.Tensor:
+    """Train-mode ``bn`` over the rows [n, C] of every rank of ``group``
+    (the JAX mesh's global statistics, ``TorchBatchNorm``'s semantics, JAX
+    ``layers.py:71-111``; ``_GlobalBatchNorm``): the mean and the biased
+    variance of the global batch, the variance from the squared deviations
+    as ``nn.BatchNorm1d`` takes it in two passes (one all-reduce of the sum
+    and the sum of squares, E[x^2] - E[x]^2 as flax takes it, cancels
+    digits), the output in the form PyTorch's CUDA kernel uses; the running
+    statistics updated on every rank with the mean and the unbiased
+    variance."""
+    y, mean, var, n = _GlobalBatchNorm.apply(x, bn.weight, bn.bias, bn.eps, group)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1 - m).add_(mean * m)
+        bn.running_var.mul_(1 - m).add_(var * (n / (n - 1)) * m)
+        bn.num_batches_tracked.add_(1)
+    return y
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
     """flax ``nn.Dropout``: each entry kept with probability 1 - rate and
-    scaled by 1 / (1 - rate), the mask drawn from ``generator``."""
+    scaled by 1 / (1 - rate), the mask drawn from ``generator`` (inside
+    ``parallel.sharded``, the global batch's mask, this rank's rows)."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = parallel.local_draw(
+        lambda n: torch.rand((n, *x.shape[1:]), generator=generator, device=x.device),
+        x.shape[0]) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

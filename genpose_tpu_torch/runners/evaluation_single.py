@@ -35,6 +35,15 @@ initialisation):
 
 ``--device`` picks ``cpu`` or ``cuda``; any other value (the config default
 is ``tpu``) means the card.
+
+Several devices (``--num_devices N``, 0 = every visible card; JAX
+``evaluation_single.py:429-444``): when ``batch_size`` divides over N,
+``main`` starts one spawned worker per device (or joins ``torchrun``'s
+group) and each padded chunk of stages 2-3 is split over the ranks, sampled
+or scored inside ``parallel.sharded`` and gathered, so every rank holds
+every chunk's result; else one process runs unsharded.  Each rank freezes
+its own agents (CUDA graphs belong to a process).  Rank 0 alone runs stage
+1, writes the pickles and runs stage 4.
 """
 
 from __future__ import annotations
@@ -61,6 +70,7 @@ from genpose_tpu_torch.data.nocs import CAMERA_INTRINSICS as CAMERA_K
 from genpose_tpu_torch.data.nocs import REAL_INTRINSICS as REAL_K
 from genpose_tpu_torch.eval.nocs_eval import compute_mAP, plot_mAP
 from genpose_tpu_torch.ops.pose import pose_to_rt, rt_to_matrix4
+from genpose_tpu_torch.parallel import group as parallel
 from genpose_tpu_torch.training.agent import PoseAgent
 from genpose_tpu_torch.training.checkpoints import latest_checkpoint, load_checkpoint
 from genpose_tpu_torch.training.ranking import sort_poses_by_energy
@@ -234,11 +244,22 @@ def pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
     return x if n >= rows else torch.cat([x, x[-1:].expand(rows - n, *x.shape[1:])])
 
 
+def _sharded_call(group, fn, batch, *rows):
+    """``fn(batch, *rows)`` over this rank's rows of the padded chunk, the
+    outputs gathered from every rank (just ``fn`` without a group)."""
+    batch, rows = parallel.shard_batch(group, (batch, rows))
+    with parallel.sharded(group):
+        out = fn(batch, *rows)
+    return parallel.all_gather_rows(group, out)
+
+
 def inference_pose(cfg: Config, score_agent: PoseAgent, data_path: str,
-                   inference_res_dir: str, generator: Optional[torch.Generator] = None):
+                   inference_res_dir: str, generator: Optional[torch.Generator] = None,
+                   group: Optional[parallel.DPGroup] = None):
     """Stage 2: K-hypothesis score sampling per category chunk
     (ref ``evaluation_single.py:356-425``).  The prior comes from
-    ``generator`` (default: one on the agent's device seeded ``cfg.seed``)."""
+    ``generator`` (default: one on the agent's device seeded ``cfg.seed``).
+    Under ``group`` each chunk is split over the ranks; rank 0 writes."""
     dev = score_agent.device
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(cfg.seed)
@@ -256,25 +277,31 @@ def inference_pose(cfg: Config, score_agent: PoseAgent, data_path: str,
             # sampler from cfg.sampler_mode: "ode" (Heun at cfg.sampling_steps),
             # "ode_adaptive" (RK45 at atol/rtol 1e-5, the reference's solver),
             # "pc" or, under sde_mode "edm", "edm", each at cfg.sampling_steps
-            pred = score_agent.sample(batch, generator=generator,
-                                      repeat_num=cfg.eval_repeat_num,
-                                      num_steps=cfg.sampling_steps, T0=cfg.T0)[:hi - lo]
+            pred = _sharded_call(
+                group, lambda b: score_agent.sample(b, generator=generator,
+                                                    repeat_num=cfg.eval_repeat_num,
+                                                    num_steps=cfg.sampling_steps, T0=cfg.T0),
+                batch)[:hi - lo]
             rts = pose_to_rts(pred, cfg.pose_mode)
             data["pred_pose"] += list(pred.cpu().numpy())
             for bi, path in enumerate(data["img_path"][lo:hi]):
                 inst = data["inst"][lo + bi]
                 detect_result[path]["result"]["multi_hypothesis_pred_RTs"][inst] = rts[bi]
 
-    os.makedirs(inference_res_dir, exist_ok=True)
-    with open(os.path.join(inference_res_dir, "results_wo_energy.pkl"), "wb") as f:
-        pickle.dump(detect_result, f)
-    with open(os.path.join(inference_res_dir, "cls_data.pkl"), "wb") as f:
-        pickle.dump(categorized, f)
+    if group is None or group.is_writer:
+        os.makedirs(inference_res_dir, exist_ok=True)
+        with open(os.path.join(inference_res_dir, "results_wo_energy.pkl"), "wb") as f:
+            pickle.dump(detect_result, f)
+        with open(os.path.join(inference_res_dir, "cls_data.pkl"), "wb") as f:
+            pickle.dump(categorized, f)
+    parallel.barrier(group)
 
 
-def inference_energy(cfg: Config, energy_agent: PoseAgent, inference_res_dir: str):
+def inference_energy(cfg: Config, energy_agent: PoseAgent, inference_res_dir: str,
+                     group: Optional[parallel.DPGroup] = None):
     """Stage 3: energy scoring + decoupled hypothesis sort
-    (ref ``evaluation_single.py:428-489``)."""
+    (ref ``evaluation_single.py:428-489``).  Under ``group`` each chunk is
+    split over the ranks; rank 0 writes."""
     dev = energy_agent.device
     with open(os.path.join(inference_res_dir, "results_wo_energy.pkl"), "rb") as f:
         detect_result = pickle.load(f)
@@ -288,7 +315,8 @@ def inference_energy(cfg: Config, energy_agent: PoseAgent, inference_res_dir: st
                      for k, v in zero_center_batch(data["pts"][lo:hi], dev).items()}
             pred_pose = pad_rows(torch.as_tensor(np.asarray(data["pred_pose"][lo:hi])).to(dev),
                                  cfg.batch_size)
-            energy = energy_agent.get_energy(batch, pred_pose, T=1e-5)
+            energy = _sharded_call(
+                group, lambda b, p: energy_agent.get_energy(b, p, T=1e-5), batch, pred_pose)
             sorted_pose, sorted_energy = sort_poses_by_energy(pred_pose, energy)
             rts = pose_to_rts(sorted_pose[:hi - lo], cfg.pose_mode)
             sorted_energy = sorted_energy[:hi - lo].cpu().numpy()
@@ -298,8 +326,9 @@ def inference_energy(cfg: Config, energy_agent: PoseAgent, inference_res_dir: st
                 res["multi_hypothesis_pred_RTs"][inst] = rts[bi]
                 res["energy"][inst] = sorted_energy[bi]
 
-    with open(os.path.join(inference_res_dir, "results_with_energy.pkl"), "wb") as f:
-        pickle.dump(detect_result, f)
+    if group is None or group.is_writer:
+        with open(os.path.join(inference_res_dir, "results_with_energy.pkl"), "wb") as f:
+            pickle.dump(detect_result, f)
 
 
 def record_results_and_draw_curves(cfg, save_path, iou_aps, pose_aps, iou_acc, pose_acc,
@@ -410,25 +439,52 @@ def load_agent(cfg: Config, mode: str, model_dir: str, device) -> PoseAgent:
 
 
 def main(argv=None):
-    cfg = get_config(argv if argv is not None else sys.argv[1:])
+    argv = list(argv if argv is not None else sys.argv[1:])
+    cfg = get_config(argv)
     device = runner_device(cfg)
+    if torch.distributed.is_initialized() or "WORLD_SIZE" in os.environ:
+        return _group_main(parallel.make_group(cfg.num_devices, device), argv)
+    n_dev = parallel.resolve_num_devices(cfg.num_devices, device)
+    if n_dev > 1 and cfg.batch_size % n_dev == 0:
+        print(f"Sharding eval batches over {n_dev} devices")
+        return parallel.launch(_group_main, n_dev, device, args=(argv,))[0]
+    return _main(cfg, device, None)
+
+
+def _group_main(group: parallel.DPGroup, argv):
+    """One rank's evaluation (``main``'s workers, or a ``torchrun`` process):
+    sharded when ``batch_size`` divides over the group, else rank 0 alone
+    runs it unsharded."""
+    cfg = get_config(argv)
+    if cfg.batch_size % group.world == 0:
+        return _main(cfg, group.device, group)
+    return _main(cfg, group.device, None) if group.is_writer else None
+
+
+def _main(cfg: Config, device, group: Optional[parallel.DPGroup]):
+    writer = group is None or group.is_writer
     inference_res_root = os.path.join(cfg.result_dir, "evaluation_results")
     inference_res_dir = os.path.join(inference_res_root,
                                      f"{cfg.test_source}_repeat_{cfg.eval_repeat_num}")
     seg_path = os.path.join(inference_res_root, f"segmentation_results_{cfg.test_source}.pkl")
 
     print("Detecting ...")
-    detect_mrcnn_results(cfg, seg_path)
+    if writer:
+        detect_mrcnn_results(cfg, seg_path)
+    parallel.barrier(group)
 
     # the weights are pinned for the whole evaluation: freeze each agent (on a
-    # card, CUDA graphs of its padded chunk), as the JAX runner's main does
+    # card, CUDA graphs of its padded chunk, or of this rank's rows of it), as
+    # the JAX runner's main does
     print("Predict pose ...")
     score_agent = load_agent(cfg, "score", cfg.score_model_dir, device).freeze()
-    inference_pose(cfg, score_agent, seg_path, inference_res_dir)
+    inference_pose(cfg, score_agent, seg_path, inference_res_dir, group=group)
 
     print("Predict energy ...")
     energy_agent = load_agent(cfg, "energy", cfg.energy_model_dir, device).freeze()
-    inference_energy(cfg, energy_agent, inference_res_dir)
+    inference_energy(cfg, energy_agent, inference_res_dir, group=group)
+    if not writer:
+        return None
 
     print("Evaluating ...")
     headline = evaluate(cfg, inference_res_dir, "results_with_energy.pkl")

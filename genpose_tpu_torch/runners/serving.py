@@ -34,6 +34,14 @@ energy passes then replay CUDA graphs of a private copy of their weights
 (``training/frozen.py``) under every sampler, with the geometry, the
 sampler's draws from the request's generator, the sort and the pooling
 outside the graphs.
+
+Under a data-parallel group (``group=parallel.make_group(...)``, one
+pipeline per rank, every rank calling ``predict`` with the same clouds and
+generator state) each padded chunk is split over the ranks, each rank runs
+its rows inside ``parallel.sharded`` (the prior's draws of the whole chunk,
+RK45's norm over every rank's rows) and the outputs are gathered, so every
+rank returns the whole result (JAX ``serving.py:173-176``).  The batch size
+must divide over the ranks.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import numpy as np
 import torch
 
 from genpose_tpu_torch.config import Config
+from genpose_tpu_torch.parallel import group as parallel
 from genpose_tpu_torch.training.agent import PoseAgent
 from genpose_tpu_torch.training.checkpoints import load_checkpoint
 from genpose_tpu_torch.training.ranking import sort_poses_by_energy
@@ -51,13 +60,18 @@ from genpose_tpu_torch.utils.device import resolve_device
 
 
 class InferencePipeline:
-    """Load-once pose estimation service on one device."""
+    """Load-once pose estimation service on one device, or on each rank of
+    a data-parallel ``group`` (on the group's device)."""
 
     def __init__(self, cfg: Config, batch_size: Optional[int] = None, device="cuda",
-                 score_ckpt: Optional[str] = None, energy_ckpt: Optional[str] = None):
+                 score_ckpt: Optional[str] = None, energy_ckpt: Optional[str] = None,
+                 group: Optional[parallel.DPGroup] = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.group = group
+        self.device = group.device if group is not None else resolve_device(device)
         self.bs = batch_size or cfg.batch_size
+        if group is not None and self.bs % group.world:
+            raise ValueError(f"batch size {self.bs} does not divide over {group.world} ranks")
         self.K = cfg.eval_repeat_num
         self.keep = max(1, int(cfg.ratio * self.K))
         self.sampler = cfg.sampler_mode[0] if cfg.sampler_mode else "ode"
@@ -109,8 +123,10 @@ class InferencePipeline:
         """Run one batch of zeros, so that the first request finds the kernels
         built, the libraries initialised and, after ``freeze()`` on a card,
         the CUDA graphs of the request's shape captured."""
-        pts = torch.zeros((self.bs, self.cfg.num_points, 3), device=self.device)
-        self._run(pts, self._generator(0))
+        world = self.group.world if self.group is not None else 1
+        pts = torch.zeros((self.bs // world, self.cfg.num_points, 3), device=self.device)
+        with parallel.sharded(self.group):
+            self._run(pts, self._generator(0))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
@@ -141,6 +157,9 @@ class InferencePipeline:
             if real < self.bs:
                 chunk = np.concatenate(
                     [chunk, np.repeat(chunk[-1:], self.bs - real, axis=0)], axis=0)
-            out = self._run(torch.from_numpy(chunk).to(self.device), generator)
+            local = parallel.shard_batch(self.group, torch.from_numpy(chunk).to(self.device))
+            with parallel.sharded(self.group):
+                out = self._run(local, generator)
+            out = parallel.all_gather_rows(self.group, out)
             outs.append({k: v[:real].cpu().numpy() for k, v in out.items()})
         return {k: np.concatenate([o[k] for o in outs], axis=0) for k in outs[0]}

@@ -53,8 +53,25 @@ The drawing is best-effort, as in the JAX runner: where it fails (the
 card's machine has no matplotlib for the SO(3) images), a line says why
 and the flow goes on.  ``--save_video`` writes each sample's diffusion
 steps as numbered PNG frames where the JAX runner encodes an mp4
-(``utils/visualize.py::save_video``).  Not ported, and refused by ``main``
-before any work: ``num_devices > 1``.
+(``utils/visualize.py::save_video``).
+
+Several devices (``--num_devices N``, 0 = every visible card, the JAX
+meaning of the flag): ``main`` starts N spawned workers, one per device
+(``parallel.launch``; gloo CPU processes under ``--device cpu``), or,
+started by ``torchrun``, joins the group its environment names.  The
+training flows then run data-parallel as the JAX trainer's mesh does
+(``genpose_tpu/runners/trainer.py:97-99``): ``--batch_size`` is the global
+batch, rank r's loader yields rank r's rows of it, and each step runs
+inside ``parallel.sharded`` (the draws of the global batch, BatchNorm
+statistics and the gradient mean over the group; the teacher's RK45 norm
+over every rank's rows).  The agents are broadcast from rank 0 after every
+load.  Logged losses are means over the ranks; the eval epoch gathers the
+first train batch and samples it whole on every rank, as the JAX trainer
+samples it unsharded.  Rank 0 alone writes checkpoints, ``clock.json``,
+``metrics.jsonl`` and images.  The flows that train nothing (``--eval``,
+``--pred``, ``--likelihood``, ``--results_path``) run in one process: the
+JAX trainer shards only its training batches.  Under ``torchrun`` they run
+on rank 0, and the other ranks return at once.
 """
 
 from __future__ import annotations
@@ -78,6 +95,7 @@ from genpose_tpu_torch.ops.pose import (
     get_rot_matrix,
     matrix_to_quat_wxyz,
 )
+from genpose_tpu_torch.parallel import group as parallel
 from genpose_tpu_torch.training.agent import PoseAgent
 from genpose_tpu_torch.training.checkpoints import (
     latest_checkpoint,
@@ -100,6 +118,46 @@ def results_dirs(cfg: Config, out_dir: str = "results"):
 
 def _generator(agent: PoseAgent, seed: int) -> torch.Generator:
     return torch.Generator(device=agent.device).manual_seed(seed)
+
+
+class _NullLogger:
+    """The metrics logger of a rank that writes nothing (every rank but 0)."""
+    log_dir = None
+
+    def scalar(self, *args, **kwargs):
+        pass
+
+    scalars = image = scalar
+
+    def close(self):
+        pass
+
+
+def _logger(log_dir: str, group: Optional[parallel.DPGroup]):
+    return MetricsLogger(log_dir) if group is None or group.is_writer else _NullLogger()
+
+
+def _log_losses(logger, losses: dict, step: int, group, prefix: str = "train/") -> None:
+    losses = parallel.mean_over_ranks(losses, group)
+    logger.scalars({k: float(v) for k, v in losses.items()}, step, prefix=prefix)
+
+
+def _save(ckpt_dir: str, agent: PoseAgent, clock: TrainClock, group) -> None:
+    if group is None or group.is_writer:
+        save_checkpoint(ckpt_dir, agent, clock.epoch, clock.make_checkpoint())
+
+
+def _first_batch(loader, group):
+    """The first raw batch of ``loader``; of a sharded loader, the whole
+    global batch gathered from every rank's rows."""
+    raw = next(iter(loader), None)
+    if getattr(loader, "shard", None) is None or group is None:
+        return raw
+    parts = parallel.all_gather_objects(group, raw)
+    if any(p is None for p in parts):
+        return None
+    return {k: (sum((p[k] for p in parts), []) if isinstance(parts[0][k], list)
+                else np.concatenate([p[k] for p in parts])) for k in parts[0]}
 
 
 def _batch_errors(cfg: Config, pose: torch.Tensor, gt: torch.Tensor, batch, pose_mode: str):
@@ -131,14 +189,16 @@ def _visualize_eval(cfg: Config, logger: MetricsLogger, batch, pred: torch.Tenso
 
 
 def _eval_epoch(cfg: Config, agent: PoseAgent, loaders, logger: MetricsLogger,
-                epoch: int, generator: torch.Generator) -> None:
+                epoch: int, generator: torch.Generator, group=None) -> None:
     """One sampled pose per object of the first batch of each loader, its
     mean rotation / translation errors and its pictures; with
     ``--save_video`` the sampling also returns its trajectory, by the
     fixed-step PF-ODE where the config's sampler is the adaptive one (JAX
-    ``trainer.py:123-133``)."""
+    ``trainer.py:123-133``).  Under a group every rank samples the whole
+    first batch (gathered from a sharded loader), unsharded, as JAX does;
+    rank 0 logs and draws."""
     for loader, mode in loaders:
-        raw = next(iter(loader), None)
+        raw = _first_batch(loader, group)
         if raw is None:
             continue
         batch = process_batch(raw, cfg.pose_mode, mini_batch_size=cfg.mini_bs,
@@ -153,7 +213,8 @@ def _eval_epoch(cfg: Config, agent: PoseAgent, loaders, logger: MetricsLogger,
         else:
             pred = agent.sample(batch, generator=generator, repeat_num=1,
                                 num_steps=cfg.sampling_steps)
-        _visualize_eval(cfg, logger, batch, pred[:, 0], process, mode, epoch)
+        if group is None or group.is_writer:
+            _visualize_eval(cfg, logger, batch, pred[:, 0], process, mode, epoch)
         rot_err, trans_err = _batch_errors(cfg, pred[:, 0], batch["gt_pose"], batch,
                                            cfg.pose_mode)
         logger.scalar(f"{mode}/ode_mean_rot_error", float(np.mean(rot_err)), epoch)
@@ -161,10 +222,13 @@ def _eval_epoch(cfg: Config, agent: PoseAgent, loaders, logger: MetricsLogger,
 
 
 def train_score(cfg: Config, train_loader: Iterable, val_loader: Iterable, agent: PoseAgent,
-                teacher: Optional[PoseAgent] = None, out_dir: str = "results") -> TrainClock:
-    """Score (or ranking-free energy) training loop (ref ``trainer.py:266-322``)."""
+                teacher: Optional[PoseAgent] = None, out_dir: str = "results",
+                group: Optional[parallel.DPGroup] = None) -> TrainClock:
+    """Score (or ranking-free energy) training loop (ref ``trainer.py:266-322``);
+    under ``group`` the loaders yield this rank's rows and each step runs
+    sharded over the group."""
     ckpt_dir, log_dir = results_dirs(cfg, out_dir)
-    logger = MetricsLogger(log_dir)
+    logger = _logger(log_dir, group)
     clock = agent.clock = getattr(agent, "clock", TrainClock())
     gen = _generator(agent, cfg.seed)
     last_saved = -1
@@ -172,25 +236,27 @@ def train_score(cfg: Config, train_loader: Iterable, val_loader: Iterable, agent
         for _ in range(clock.epoch, cfg.n_epochs + 1):
             t_epoch = time.time()
             for raw in train_loader:
-                batch = process_batch(raw, cfg.pose_mode, gen, cfg.pts_aug, device=agent.device)
-                losses = (agent.train_step_distill(teacher, batch, gen) if teacher is not None
-                          else agent.train_step(batch, gen))
-                clock.tick()
-                if clock.step % 50 == 0:
-                    logger.scalars({k: float(v) for k, v in losses.items()}, clock.step,
-                                   prefix="train/")
-                if cfg.ema_rate > 0 and clock.step % 5 == 0:
-                    logger.scalar("train/ema", float(agent.ema_loss(batch, gen)), clock.step)
+                with parallel.sharded(group):
+                    batch = process_batch(raw, cfg.pose_mode, gen, cfg.pts_aug,
+                                          device=agent.device)
+                    losses = (agent.train_step_distill(teacher, batch, gen)
+                              if teacher is not None else agent.train_step(batch, gen))
+                    clock.tick()
+                    if clock.step % 50 == 0:
+                        _log_losses(logger, losses, clock.step, group)
+                    if cfg.ema_rate > 0 and clock.step % 5 == 0:
+                        _log_losses(logger, {"ema": agent.ema_loss(batch, gen)}, clock.step,
+                                    group)
             logger.scalar("epoch_time_s", time.time() - t_epoch, clock.epoch)
             clock.tock()
             if clock.epoch % cfg.eval_freq == 0:
                 _eval_epoch(cfg, agent, ((train_loader, "train"), (val_loader, "val")),
-                            logger, clock.epoch, gen)
-                save_checkpoint(ckpt_dir, agent, clock.epoch, clock.make_checkpoint())
+                            logger, clock.epoch, gen, group)
+                _save(ckpt_dir, agent, clock, group)
                 last_saved = clock.epoch
         # always leave a final checkpoint, also when n_epochs < eval_freq
         if last_saved != clock.epoch:
-            save_checkpoint(ckpt_dir, agent, clock.epoch, clock.make_checkpoint())
+            _save(ckpt_dir, agent, clock, group)
     finally:
         logger.close()
     return clock
@@ -198,42 +264,44 @@ def train_score(cfg: Config, train_loader: Iterable, val_loader: Iterable, agent
 
 def train_energy(cfg: Config, train_loader: Iterable, val_loader: Iterable,
                  energy_agent: PoseAgent, score_agent: Optional[PoseAgent] = None,
-                 ranking: bool = False, out_dir: str = "results") -> TrainClock:
+                 ranking: bool = False, out_dir: str = "results",
+                 group: Optional[parallel.DPGroup] = None) -> TrainClock:
     """Energy training (ref ``trainer.py:325-388``).  Without ranking it is
     ``train_score`` with ``score_agent`` as the distillation teacher; with
     ranking, the frozen ``score_agent`` samples NUM_CANDIDATES poses per
     object online."""
     if not ranking:
         return train_score(cfg, train_loader, val_loader, energy_agent, teacher=score_agent,
-                           out_dir=out_dir)
+                           out_dir=out_dir, group=group)
     if score_agent is None:
         raise ValueError("ranking needs a score agent to generate candidates")
     ckpt_dir, log_dir = results_dirs(cfg, out_dir)
-    logger = MetricsLogger(log_dir)
+    logger = _logger(log_dir, group)
     clock = energy_agent.clock = getattr(energy_agent, "clock", TrainClock())
     gen = _generator(energy_agent, cfg.seed + 1)
     last_saved = -1
     try:
         for _ in range(clock.epoch, cfg.n_epochs + 1):
             for raw in train_loader:
-                batch = process_batch(raw, cfg.pose_mode, gen, cfg.pts_aug,
-                                      device=energy_agent.device)
-                # the candidates' sampling and the energy step encode the same
-                # augmented points: one geometry pass (FPS + ball query) for both
-                pose_samples, geom = score_agent.sample(
-                    batch, generator=gen, repeat_num=NUM_CANDIDATES,
-                    num_steps=cfg.sampling_steps, return_geometry=True)
-                losses = energy_agent.train_step_energy(batch, pose_samples, gen, geometry=geom)
-                clock.tick()
-                if clock.step % 50 == 0:
-                    logger.scalars({k: float(v) for k, v in losses.items()}, clock.step,
-                                   prefix="train/")
+                with parallel.sharded(group):
+                    batch = process_batch(raw, cfg.pose_mode, gen, cfg.pts_aug,
+                                          device=energy_agent.device)
+                    # the candidates' sampling and the energy step encode the same
+                    # augmented points: one geometry pass (FPS + ball query) for both
+                    pose_samples, geom = score_agent.sample(
+                        batch, generator=gen, repeat_num=NUM_CANDIDATES,
+                        num_steps=cfg.sampling_steps, return_geometry=True)
+                    losses = energy_agent.train_step_energy(batch, pose_samples, gen,
+                                                            geometry=geom)
+                    clock.tick()
+                    if clock.step % 50 == 0:
+                        _log_losses(logger, losses, clock.step, group)
             clock.tock()
             if clock.epoch % cfg.eval_freq == 0:
-                save_checkpoint(ckpt_dir, energy_agent, clock.epoch, clock.make_checkpoint())
+                _save(ckpt_dir, energy_agent, clock, group)
                 last_saved = clock.epoch
         if last_saved != clock.epoch:
-            save_checkpoint(ckpt_dir, energy_agent, clock.epoch, clock.make_checkpoint())
+            _save(ckpt_dir, energy_agent, clock, group)
     finally:
         logger.close()
     return clock
@@ -459,36 +527,55 @@ def _resolve_eval_weights(cfg: Config, agent: PoseAgent, ckpt_dir: str) -> None:
           "- running with the seeded initial weights")
 
 
-def refuse_unported(cfg: Config) -> None:
-    """Raise for what the port's CLI does not do, before any work."""
-    if cfg.num_devices > 1:
-        raise NotImplementedError(
-            f"--num_devices {cfg.num_devices}: training on several cards is not ported")
-
-
 def main(argv=None, out_dir: str = "results"):
-    cfg = get_config(argv if argv is not None else sys.argv[1:])
-    refuse_unported(cfg)
+    argv = list(argv if argv is not None else sys.argv[1:])
+    cfg = get_config(argv)
+    training = not (cfg.eval or cfg.pred or cfg.likelihood or cfg.results_path)
+    rank = int(os.environ.get("RANK", 0))
+    if not training and rank > 0:  # torchrun: the flow and its files are rank 0's
+        print(f"rank {rank}: nothing to do, the flows that train nothing run on rank 0")
+        return
+    if training and cfg.device != "cpu":
+        parallel.resolve_num_devices(cfg.num_devices, "cuda")  # more cards than there are raises
     device = runner_device(cfg)
     if cfg.results_path:
         print("Start evaluate ...")
         evaluation(cfg, device)
         print("Evaluate finished!")
         return
+    joined = torch.distributed.is_initialized() or "WORLD_SIZE" in os.environ
+    if training and joined:
+        return _group_main(parallel.make_group(cfg.num_devices, device), argv, out_dir)
+    world = parallel.resolve_num_devices(cfg.num_devices, device)
+    if training and world > 1:
+        print(f"Training on {world} devices ({device.type}), one process each")
+        parallel.launch(_group_main, world, device, args=(argv, out_dir))
+        return
+    _main(cfg, device, None, out_dir)
+
+
+def _group_main(group: parallel.DPGroup, argv, out_dir: str) -> None:
+    """One rank's training run (``main``'s workers, or a ``torchrun`` process)."""
+    _main(get_config(argv), group.device, group, out_dir)
+
+
+def _main(cfg: Config, device, group: Optional[parallel.DPGroup], out_dir: str) -> None:
+    shard = (group.rank, group.world) if group is not None else None
     if not (cfg.eval or cfg.pred or cfg.likelihood):
-        loaders = get_data_loaders_from_cfg(cfg, ["train", "val", "test"])
+        loaders = get_data_loaders_from_cfg(cfg, ["train", "val", "test"], shard=shard)
         steps_per_epoch = max(1, len(loaders["train_loader"]))
     else:
         loaders = get_data_loaders_from_cfg(cfg, ["test"])
         steps_per_epoch = 1000
     try:
-        _run_flows(cfg, device, loaders, steps_per_epoch, out_dir)
+        _run_flows(cfg, device, loaders, steps_per_epoch, out_dir, group)
     finally:
         for ld in loaders.values():  # the process pools of loader_mode='process'
             ld.close()
 
 
-def _run_flows(cfg: Config, device, loaders, steps_per_epoch: int, out_dir: str) -> None:
+def _run_flows(cfg: Config, device, loaders, steps_per_epoch: int, out_dir: str,
+               group: Optional[parallel.DPGroup] = None) -> None:
     def agent(mode):
         return PoseAgent(cfg, mode, device=device, steps_per_epoch=steps_per_epoch)
 
@@ -522,6 +609,9 @@ def _run_flows(cfg: Config, device, loaders, steps_per_epoch: int, out_dir: str)
         if path:
             load_checkpoint(path, tr_agent, load_model_only=False)
             tr_agent.clock = TrainClock.restored(load_clock(ckpt_dir))
+    # after every load, every rank holds rank 0's state (JAX: replicated placement)
+    parallel.replicate(group, *{id(a): a for a in (tr_agent, score_agent) if a is not None}
+                       .values())
 
     test_loader = loaders["test_loader"]
     if cfg.eval or cfg.likelihood or cfg.pred:
@@ -546,10 +636,11 @@ def _run_flows(cfg: Config, device, loaders, steps_per_epoch: int, out_dir: str)
 
     train_loader, val_loader = loaders["train_loader"], loaders["val_loader"]
     if cfg.agent_type == "score":
-        train_score(cfg, train_loader, val_loader, tr_agent, out_dir=out_dir)
+        train_score(cfg, train_loader, val_loader, tr_agent, out_dir=out_dir, group=group)
     else:
         train_energy(cfg, train_loader, val_loader, tr_agent, score_agent,
-                     ranking=cfg.agent_type == "energy_with_ranking", out_dir=out_dir)
+                     ranking=cfg.agent_type == "energy_with_ranking", out_dir=out_dir,
+                     group=group)
 
 
 if __name__ == "__main__":

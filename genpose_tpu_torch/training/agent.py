@@ -80,6 +80,7 @@ from genpose_tpu_torch.ops.pose import (
     get_rot_matrix,
     matrix_to_quat_wxyz,
 )
+from genpose_tpu_torch.parallel import group as parallel
 from genpose_tpu_torch.training.frozen import FrozenPrograms
 from genpose_tpu_torch.training.ranking import ranking_loss, sort_results
 from genpose_tpu_torch.training.state import EMA, TrainState, create_train_state
@@ -292,7 +293,12 @@ class PoseAgent:
 
     def _optimize(self, loss_fn):
         """Run ``loss_fn() -> (loss, aux)`` with gradients on the live
-        parameters, then one optimizer + EMA update.  Returns aux."""
+        parameters, then one optimizer + EMA update.  Returns aux.  Inside
+        ``parallel.sharded`` the gradients are averaged over the group first
+        (one all-reduce), so clip, optimizer and EMA run alike on every rank.
+        ``DistributedDataParallel`` would do nothing here: its reducer hooks
+        the parameters' ``AccumulateGrad``, which ``torch.autograd.grad``
+        never reaches."""
         params = self.params()
         for p in params.values():
             p.requires_grad_(True)
@@ -305,6 +311,7 @@ class PoseAgent:
                 p.requires_grad_(False)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(params.items(), grads)}
+        grads = parallel.average_gradients_(grads, parallel.active())
         self.state.apply_gradients(params, grads)
         return aux
 
@@ -397,8 +404,9 @@ class PoseAgent:
                                   pose_samples[..., -3:] - batch["pts_center"][:, None, :]],
                                  dim=-1).reshape(bs * K, -1)
             if t_int is None:
-                t_int = torch.randint(1, 10, (bs, 1), generator=generator,
-                                      device=pose_samples.device)
+                t_int = parallel.local_draw(
+                    lambda n: torch.randint(1, 10, (n, 1), generator=generator,
+                                            device=pose_samples.device), bs)
             t_samples = (t_int.to(pose_samples.dtype) / 1e5).repeat_interleave(K, dim=0)
 
         def loss_fn():
@@ -516,7 +524,8 @@ class PoseAgent:
             t_input = torch.full((bs * K, 1), T, dtype=pose_samples.dtype, device=dev)
         else:
             if t_int is None:
-                t_int = torch.randint(1, 10, (bs, 1), generator=generator, device=dev)
+                t_int = parallel.local_draw(
+                    lambda n: torch.randint(1, 10, (n, 1), generator=generator, device=dev), bs)
             t_input = (t_int.to(pose_samples.dtype) / 1e5).repeat_interleave(K, dim=0)
         frozen = self.frozen_programs()
         if frozen is not None:

@@ -27,7 +27,11 @@ memory pool) and replayed after:
 - RK45: the encoder, the head's projections and the initial step as one
   graph, one attempt as a second, denoise and re-projection as a third.
   The host replays the attempt graph and reads ``done`` once per attempt,
-  as the eager sampler does (``diffusion/samplers.py::integrate_adaptive``);
+  as the eager sampler does (``diffusion/samplers.py::integrate_adaptive``).
+  Under a group of several ranks the initial step is three graphs and an
+  attempt two, split at their norms (``RK45.start_phases``,
+  ``attempt_phases``), and between them the host makes the norms' means
+  global (``RK45.reduce``), so no collective is captured;
 - energies: the encoder, the head's projections and the energy head.
 
 Outside the graphs, eagerly: the PointNet++ geometry (the FPS and ball-query
@@ -40,7 +44,9 @@ program's static buffers with any draws the caller passed in (PC's
 backward pass per pose dimension, run on the frozen copy of the weights as
 JAX runs it unfrozen on its pinned state; and whatever the caller does with
 the result (sorting, pooling, whose eigen-solve checks its ``info`` on the
-host).  On the CPU the same static-buffer code runs eagerly and nothing is
+host).  Under a group of several ranks PC's chain is not captured: its
+corrector averages the score norm over every rank's rows at each step.  On
+the CPU the same static-buffer code runs eagerly and nothing is
 captured.  On a card a capture or replay that fails raises; nothing falls
 back to eager.
 
@@ -73,6 +79,7 @@ from genpose_tpu_torch.diffusion.samplers import (
 )
 from genpose_tpu_torch.models.layers import cast_weights_
 from genpose_tpu_torch.ops.pose import get_pose_dim
+from genpose_tpu_torch.parallel import group as parallel
 
 # Calls served by frozen programs since import.  A run that resets it and
 # reads it afterwards shows whether a path went through them.
@@ -198,13 +205,13 @@ class FrozenPrograms:
         """Whether the agent still holds the weights captured at freeze time."""
         return _fingerprint(self.agent) == self._print
 
-    def _run(self, key: tuple, inputs, build: Callable) -> torch.Tensor:
+    def _run(self, key: tuple, inputs, build: Callable, capture: bool = True) -> torch.Tensor:
         global dispatches
         prog = self.programs.get(key)
         if prog is None:
             static = _clone(inputs)
             prog = self.programs[key] = _Program(static, *build(*static))
-            if self.pool is not None:
+            if self.pool is not None and capture:
                 prog.capture(self.pool, self.stream)
         else:
             _copy_into(prog.static, inputs)
@@ -242,6 +249,10 @@ class FrozenPrograms:
         else:
             starts = (prior_rows(sde, rows, pose_mode, T, generator, dev, init_rep),)
         twin = self.sample_twin
+        # under a group of several ranks the samplers' norms reduce over
+        # every rank's rows, which no graph may hold
+        group = parallel.active()
+        grouped = group is not None and group.world > 1
 
         def build(pts, center, geometry, *starts):
             def encoded():
@@ -255,13 +266,31 @@ class FrozenPrograms:
                 rk = RK45(sde, pose_mode, T, rows, dev)
                 held = {}  # score_fn and the repeated centers, made by the first segment
 
-                def start():
-                    held["score_fn"], held["center"] = encoded()
-                    rk.start(held["score_fn"], starts[0])
+                def finish():
+                    return rk.finish(held["score_fn"], held["center"])
 
-                fns = [start, lambda: rk.attempt(held["score_fn"]),
-                       lambda: rk.finish(held["score_fn"], held["center"])]
-                return fns, lambda *segs: integrate_adaptive(*segs, rk.done)[0]
+                if not grouped:  # the reductions are the identity: a graph each
+                    def start():
+                        held["score_fn"], held["center"] = encoded()
+                        rk.start(held["score_fn"], starts[0])
+
+                    return ([start, lambda: rk.attempt(held["score_fn"]), finish],
+                            lambda *segs: integrate_adaptive(*segs, rk.done)[0])
+
+                def start_a():
+                    held["score_fn"], held["center"] = encoded()
+                    rk.start_a(held["score_fn"], starts[0])
+
+                fns = [start_a, lambda: rk.start_b(held["score_fn"]), rk.start_c,
+                       lambda: rk.attempt_a(held["score_fn"]), rk.attempt_b, finish]
+
+                def drive(sa, sb, sc, aa, ab, fin):
+                    # the norms' reductions run between the graphs, never in one
+                    return integrate_adaptive(rk.chain([sa, sb, sc], rk.START_SLOTS),
+                                              rk.chain([aa, ab], rk.ATTEMPT_SLOTS), fin,
+                                              rk.done)[0]
+
+                return fns, drive
             if sampler == "ode":
                 heun = ODEChain(sde, pose_mode, num_steps, T, dev)
 
@@ -279,9 +308,12 @@ class FrozenPrograms:
 
             return [lambda: run(*encoded())], lambda seg: seg()
 
+        # PC's corrector reduces over every rank's rows at each step, inside
+        # its chain: under a group of several ranks the chain runs uncaptured
+        capture = not (sampler == "pc" and grouped)
         key = ("sample", bs, K, pts.shape[1], sampler, num_steps, T, init_x is not None,
-               return_process, noise is not None, latents is not None)
-        out = self._run(key, (pts, center, geometry, *starts), build)
+               return_process, noise is not None, latents is not None, grouped)
+        out = self._run(key, (pts, center, geometry, *starts), build, capture)
         if return_process:
             return out, geometry
         return out.reshape(bs, K, -1), geometry

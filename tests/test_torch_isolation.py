@@ -53,7 +53,9 @@ def test_scan_sees_the_whole_port():
                  "genpose_tpu_torch/utils/torch_port.py",
                  "genpose_tpu_torch/tools/port_torch_ckpt.py",
                  "genpose_tpu_torch/data/nocs.py", "genpose_tpu_torch/data/loader.py",
-                 "genpose_tpu_torch/runners/trainer.py"):
+                 "genpose_tpu_torch/runners/trainer.py", "genpose_tpu_torch/parallel/group.py",
+                 "genpose_tpu_torch/tools/dryrun_multi.py",
+                 "genpose_tpu_torch/utils/benchmarking.py", "genpose_tpu_torch/eval/draw.py"):
         assert must in names
 
 
@@ -118,8 +120,10 @@ def test_unknown_flag_is_an_error():
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     from genpose_tpu_torch.models.posenet import build_model
-    from genpose_tpu_torch.runners import trainer
+    from genpose_tpu_torch.parallel import make_group
+    from genpose_tpu_torch.runners import evaluation_single, trainer
     from genpose_tpu_torch.runners.serving import InferencePipeline
+    from genpose_tpu_torch.tools.dryrun_multi import dryrun_multidevice
     from genpose_tpu_torch.training.agent import PoseAgent
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -128,7 +132,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: build_model(cfg), lambda: PoseAgent(cfg, device="cuda:0"),
                  lambda: trainer.main(["--agent_type", "score", "--data_path", "unread"]),
                  lambda: trainer.main(["--results_path", "unread.pkl", "--device", "cuda"]),
-                 lambda: trainer.evaluation(torch_config.Config(results_path="unread.pkl"))):
+                 lambda: trainer.evaluation(torch_config.Config(results_path="unread.pkl")),
+                 # several devices: the trainer's and the evaluation's spawn paths,
+                 # the dry run and the group itself
+                 lambda: trainer.main(["--agent_type", "score", "--data_path", "unread",
+                                       "--num_devices", "2"]),
+                 lambda: trainer.main(["--agent_type", "score", "--data_path", "unread",
+                                       "--num_devices", "0"]),
+                 lambda: evaluation_single.main(["--data_path", "unread", "--num_devices", "2"]),
+                 lambda: dryrun_multidevice(2), lambda: make_group()):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     model = build_model(cfg, "score", device="cpu")

@@ -6,9 +6,12 @@
   one epoch from the saved one), the energy warm start from score weights
   (tail outputs re-zeroed), distillation, energy_with_ranking, ``--eval``,
   ``--results_path`` (never over its input), ``--pred`` and
-  ``--likelihood``; the missing ``--model_name`` error; the "not ported"
-  refusal of ``--num_devices > 1`` (``--save_video`` and the drawing are
-  held in ``tests/test_torch_visualize.py``).
+  ``--likelihood``; the missing ``--model_name`` error; the error of
+  ``--num_devices`` beyond the machine's cards, the default's spawned
+  workers on two cards against ``--num_devices 1``'s one process, and the
+  flows that train nothing on rank 0 alone under ``torchrun``
+  (``--save_video`` and the drawing are held in
+  ``tests/test_torch_visualize.py``).
 - Against the JAX package: ``evaluation`` of one shared ``results.pkl``
   within 1e-5 (the same float32 quaternion averaging; eigen-solver and
   arccos rounding), and one ``inference`` batch with the same weights
@@ -247,9 +250,45 @@ def test_missing_model_name_fails_loudly(tree, tmp_path):
 
 @pytest.mark.parametrize("flags,match", [(["--num_devices", "2"], "several cards")])
 def test_unported_options_raise_before_any_work(tmp_path, flags, match):
+    """Training on more cards than the machine has raises before any work
+    (``--num_devices 2`` on the card; several CPU processes are
+    ``tests/test_torch_parallel.py``'s)."""
     missing = str(tmp_path / "no_tree")  # never read: the refusal comes first
-    with pytest.raises(NotImplementedError, match=match):
-        trainer.main(["--agent_type", "score"] + flags + _flags(missing), out_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match=match):
+        trainer.main(["--agent_type", "score"] + flags + _flags(missing) + ["--device", "cuda"],
+                     out_dir=str(tmp_path))
+    assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("flags,spawned", [([], 2), (["--num_devices", "1"], None)])
+def test_num_devices_on_a_machine_with_two_cards(tmp_path, monkeypatch, flags, spawned):
+    """On two cards the default (0, every card) trains in two spawned
+    workers; ``--num_devices 1`` trains in this process."""
+    calls = []
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(trainer.parallel, "launch",
+                        lambda fn, world, device, args=(): calls.append(("launch", world)))
+    monkeypatch.setattr(trainer, "_main",
+                        lambda cfg, device, group, out_dir: calls.append(("main", group)))
+    trainer.main(["--agent_type", "score"] + flags + _flags(str(tmp_path / "no_tree"))
+                 + ["--device", "cuda"], out_dir=str(tmp_path))
+    assert calls == ([("launch", spawned)] if spawned else [("main", None)])
+
+
+@pytest.mark.parametrize("flag", ["--eval", "--pred", "--likelihood", "--results_path"])
+def test_flows_that_train_nothing_run_on_rank_0_alone(tmp_path, monkeypatch, flag):
+    """Under ``torchrun`` a rank other than 0 returns from ``--eval``,
+    ``--pred``, ``--likelihood`` and ``--results_path`` at once: no work,
+    no files."""
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setattr(trainer, "_main", lambda *a: pytest.fail("rank 1 ran the flow"))
+    monkeypatch.setattr(trainer, "evaluation", lambda *a: pytest.fail("rank 1 evaluated"))
+    value = str(tmp_path / "results.pkl") if flag == "--results_path" else "true"
+    trainer.main(["--agent_type", "score", flag, value] + _flags(str(tmp_path / "no_tree")),
+                 out_dir=str(tmp_path / "out"))
     assert os.listdir(tmp_path) == []
 
 
