@@ -188,20 +188,33 @@ non-zero and prints no result line):
    scales;
 19. ``utils/benchmarking.py::time_chain_marginal`` (CUDA events) over the
    three-stage geometry chain (the kernels) and over the frozen float32
-   Heun-500 request, beside phase 12's host-clock seconds for that request.
+   Heun-500 request, beside phase 12's host-clock seconds for that request;
+20. the host C helper (``genpose_tpu_torch/native``, ``g++``; built from its
+   source after the CUDA kernels, before any phase calls it): the train
+   loader's first batch on phase 15's tree fetched through it and through
+   the plain Python stream (``GENPOSE_NO_NATIVE=1``), bit for bit, with one
+   helper call per sample on the first and none on the second; its five
+   entry points (``depth_mask_to_pcl``, ``sample_points``,
+   ``backproject_sample``, ``fps`` on each cloud and batched) against their
+   plain versions on that batch's ROIs and clouds (tiled duplicate points:
+   exact ties); ms per call of the helper and the Python stream on
+   120x120, 240x240 and 440x440 ROIs; one sample's host split under the
+   plain stream beside phase 15's split and loader rates, which go through
+   the helper.
 
 Checkpoints and metrics of phase 7, the trees and results of phases 9-12,
 the converted checkpoints of phase 14 and the tree and results of phase 15
 go under ``build/chip_smoke/`` in the checkout.  The last lines are the
 training numbers, the evaluation and tracking numbers, the frozen arms, the
 bfloat16 arms, the checkpoint and sampler numbers, the training CLI's
-numbers, phase 16's, 17's, 18's and 19's numbers, the card line, one JSON
-line describing each kernel, and ``{"ok": true, "device": {...}}``.
+numbers, phase 16's, 17's, 18's, 19's and 20's numbers, the card line, one
+JSON line describing each kernel, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import os
@@ -2449,7 +2462,7 @@ def training_cli_path(dev, card, in_memory_step_s: float):
                                    n_real_scenes=CLI_REAL_SCENES, seed=0)
     tree_s = time.perf_counter() - t0
     out = str(root / "results")
-    result = {"tree_s": tree_s, "scenes": {"CAMERA/train": CLI_CAMERA_SCENES,
+    result = {"tree": tree, "tree_s": tree_s, "scenes": {"CAMERA/train": CLI_CAMERA_SCENES,
                                            "Real/train": CLI_REAL_SCENES}}
 
     rates, per_epoch, first = loader_modes(tree, card)
@@ -3492,6 +3505,196 @@ def benchmarking_module(dev, card, pts: np.ndarray, frozen_heun_s: float):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the host C helper (native/) on the data path
+# ---------------------------------------------------------------------------
+HELPER_ROI_SIDES = (120, 240, 440)  # square ROIs of the helper's timing, half the pixels valid
+HELPER_REPEATS = {"c": 40, "python": 8}  # calls per timed turn of each path
+
+
+@contextlib.contextmanager
+def no_native(on: bool = True):
+    """Within the block (when ``on``), ``GENPOSE_NO_NATIVE=1``: the data path
+    takes the plain Python stream."""
+    from genpose_tpu_torch import native
+
+    saved = os.environ.get(native.DISABLE_ENV)
+    if on:
+        os.environ[native.DISABLE_ENV] = "1"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(native.DISABLE_ENV, None)
+        else:
+            os.environ[native.DISABLE_ENV] = saved
+
+
+def _first_loader_batch(tree: str, plain: bool):
+    """The first batch of the train loader (thread mode, the config's
+    defaults), with the inputs of each ``backproject_and_sample`` call it
+    made (the generator copied before the call) and the number of the
+    helper's calls."""
+    from genpose_tpu_torch import native
+    from genpose_tpu_torch.config import get_config
+    from genpose_tpu_torch.data import nocs
+    from genpose_tpu_torch.data.loader import get_data_loaders_from_cfg
+
+    calls, helper_calls = [], []  # list.append is atomic: the loader's threads share them
+    real, real_native = nocs.backproject_and_sample, native.backproject_sample
+
+    def recorded(depth, K, xymap, mask, n_pts, rng, scale=1.0):
+        calls.append((depth, K, xymap, mask, n_pts, copy.deepcopy(rng), scale))
+        return real(depth, K, xymap, mask, n_pts, rng, scale)
+
+    def counted(*args, **kwargs):
+        helper_calls.append(1)
+        return real_native(*args, **kwargs)
+
+    nocs.backproject_and_sample, native.backproject_sample = recorded, counted
+    try:
+        with no_native(plain):
+            cfg = get_config(["--data_path", tree, "--loader_mode", "thread"])
+            loader = get_data_loaders_from_cfg(cfg, ["train"])["train_loader"]
+            it = iter(loader)
+            batch = next(it)
+            it.close()
+            loader.close()
+            # the producer and its pool are joined: no call is still running
+            return batch, list(calls), len(helper_calls)
+    finally:
+        nocs.backproject_and_sample, native.backproject_sample = real, real_native
+
+
+def _hold_entry_points(calls, clouds: np.ndarray):
+    """Each of the helper's five entry points against its plain version on
+    the recorded inputs (and FPS on the batch's clouds), bit for bit."""
+    from genpose_tpu_torch import native
+    from genpose_tpu_torch.data import dataset_utils as du
+    from genpose_tpu_torch.ops.pointcloud import farthest_point_sample_ref
+
+    checked = {"depth_mask_to_pcl": 0, "sample_points": 0, "backproject_sample": 0,
+               "fps": 0, "fps_batch": 0}
+    for depth, K, xymap, mask, n_pts, rng, scale in calls:
+        fx, fy, cx, cy, s = du._intrinsics(K, scale)
+        roi = (depth, mask, xymap[0], xymap[1], fx, fy, cx, cy)
+        pcl = du.depth_mask_to_pcl_ref(*roi, s)
+        if not np.array_equal(native.depth_mask_to_pcl(*roi, s), pcl):
+            raise AssertionError("depth_mask_to_pcl != depth_mask_to_pcl_ref on a loader ROI")
+        seed = int(copy.deepcopy(rng).integers(0, 2**63 - 1))
+        want = du._native_sample(pcl, n_pts, seed)
+        if not np.array_equal(native.sample_points(pcl, n_pts, seed), want):
+            raise AssertionError("sample_points != _native_sample on a loader cloud")
+        k, got = native.backproject_sample(*roi, s, n_pts, seed)
+        ref_k, ref = du.backproject_and_sample_ref(depth, K, xymap, mask, n_pts,
+                                                   copy.deepcopy(rng), scale)
+        if k != ref_k or k != pcl.shape[0] or not np.array_equal(got, ref):
+            raise AssertionError("backproject_sample != backproject_and_sample_ref")
+        for name in ("depth_mask_to_pcl", "sample_points", "backproject_sample"):
+            checked[name] += 1
+    npoint = clouds.shape[1] // 2
+    want = farthest_point_sample_ref(torch.from_numpy(clouds), npoint).numpy()
+    if not np.array_equal(native.fps(clouds, npoint), want):
+        raise AssertionError("fps (batch) != farthest_point_sample_ref on the loader batch")
+    checked["fps_batch"] = 1
+    for cloud, w in zip(clouds, want):
+        if not np.array_equal(native.fps(cloud, npoint), w):
+            raise AssertionError("fps (one cloud) != farthest_point_sample_ref")
+        checked["fps"] += 1
+    return checked
+
+
+def _helper_timing():
+    """ms per call of ``backproject_and_sample`` through the helper and the
+    plain Python stream on square ROIs (half the pixels valid, N=1024, the
+    loader's mm -> m scale), in turns python, c, c, python; medians."""
+    from genpose_tpu_torch.data import dataset_utils as du
+
+    rng = np.random.default_rng(0)
+    K = np.array([[591.0125, 0, 322.525], [0, 590.16775, 244.11084], [0, 0, 1]], np.float32)
+    out = {}
+    for side in HELPER_ROI_SIDES:
+        depth = (rng.integers(300, 1500, (side, side))
+                 * (rng.random((side, side)) < 0.5)).astype(np.float32)[None]
+        mask = np.ones_like(depth)
+        coord = du.get_2d_coord_np(side, side).astype(np.float32)
+        times = {"c": [], "python": []}
+        for path in ("python", "c", "c", "python"):
+            fn = du.backproject_and_sample_ref if path == "python" else du.backproject_and_sample
+            gen = np.random.default_rng(1)
+            t0 = time.perf_counter()
+            for _ in range(HELPER_REPEATS[path]):
+                n_valid, _ = fn(depth, K, coord, mask, N_POINTS, gen, 1e-3)
+            times[path].append((time.perf_counter() - t0) / HELPER_REPEATS[path] * 1e3)
+        out[f"{side}x{side}"] = {"valid": int(n_valid), "c_ms": float(np.median(times["c"])),
+                                 "python_ms": float(np.median(times["python"])),
+                                 "turns_ms": times}
+    return out
+
+
+def build_host_helper() -> dict:
+    """Phase 20, first: build the host C helper from its source (at the
+    start of the run, before phase 15's loaders call it)."""
+    from genpose_tpu_torch import native
+
+    if native.disabled():
+        raise AssertionError(f"{native.DISABLE_ENV} is set: phase 20 drives the helper")
+    found = native.library_path().exists()
+    t0 = time.perf_counter()
+    lib = native.build()
+    native.get_lib()
+    out = {"library": str(lib.relative_to(Path(__file__).resolve().parent)),
+           "build_s": time.perf_counter() - t0, "built_here": not found}
+    print(f"host C helper {out['library']} {'built' if not found else 'found'} in "
+          f"{out['build_s']:.3f} s", flush=True)
+    return out
+
+
+def host_helper(card: str, tree: str, cli: dict, helper_build: dict):
+    """Phase 20: the host C helper (``genpose_tpu_torch/native``, built by
+    ``build_host_helper``): the train loader's first batch fetched through
+    it and through the plain Python stream (``GENPOSE_NO_NATIVE=1``), bit for bit,
+    each entry point held against its plain version on that batch's
+    inputs, ms per call of both paths, and one sample's host split under
+    the plain stream beside phase 15's (through the helper)."""
+    t_phase = time.perf_counter()
+    out = dict(helper_build)
+    batch, calls, helper_calls = _first_loader_batch(tree, plain=False)
+    plain_batch, plain_calls, plain_helper_calls = _first_loader_batch(tree, plain=True)
+    if not calls or helper_calls != len(calls) or plain_helper_calls != 0:
+        raise AssertionError(f"helper calls {helper_calls} for {len(calls)} samples (plain "
+                             f"stream: {plain_helper_calls} for {len(plain_calls)})")
+    for k in batch:
+        a, b = batch[k], plain_batch[k]
+        if not (a == b if k == "path" else np.array_equal(a, b) and a.dtype == b.dtype):
+            raise AssertionError(f"the loader batch differs at {k!r} between the helper and "
+                                 f"the plain stream")
+    out["checked"] = _hold_entry_points(calls, np.ascontiguousarray(batch["pcl_in"]))
+    out["samples"] = {"batch": len(batch["path"]), "calls": len(calls)}
+    out["ms_per_call"] = _helper_timing()
+    with no_native():
+        out["sample_host_ms_plain_stream"] = sample_host_split(tree)
+    out["sample_host_ms_helper"] = cli["sample_host_ms"]
+    out["loader_helper"] = cli["loader"]
+    out["seconds"] = time.perf_counter() - t_phase
+    key = "back-projection + sampling"
+    print(f"phase 20 host C helper ({out['library']}): the first train batch "
+          f"({out['samples']['batch']} samples, {len(calls)} calls, thread loader) equal through the helper and the plain stream; entry points equal their plain "
+          f"versions {out['checked']}; ms per call (N={N_POINTS}, half the pixels valid), "
+          f"helper / Python stream: "
+          + ", ".join(f"{k} {v['c_ms']:.4f} / {v['python_ms']:.4f}"
+                      for k, v in out["ms_per_call"].items())
+          + f"; a sample's {key} {out['sample_host_ms_helper'][key]:.3f} ms of "
+          f"{out['sample_host_ms_helper']['total']:.3f} (helper, phase 15) against "
+          f"{out['sample_host_ms_plain_stream'][key]:.3f} of "
+          f"{out['sample_host_ms_plain_stream']['total']:.3f} (plain stream); loaders with the "
+          f"helper (phase 15): "
+          + "; ".join(f"{m} {r['samples_per_s']:.2f} samples/s"
+                      for m, r in out["loader_helper"].items())
+          + f"; took {out['seconds']:.1f} s; {card}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3508,6 +3711,7 @@ def main() -> int:
     lib = _build.build(verbose=True)
     print(f"built {lib.relative_to(_build.PKG_DIR.parent)} in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
+    helper_build = build_host_helper()
 
     fps_rows, bq_rows, fused_rows, max_err = check_kernels(dev)
     for row in fps_rows + bq_rows + fused_rows:
@@ -3586,6 +3790,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase19 = benchmarking_module(dev, card, pts, frozen_arms["serving"]["ode"]["frozen_s"])
     torch.cuda.empty_cache()
+    phase20 = host_helper(card, cli["tree"], cli, helper_build)
 
     fps_launches = results["ode"][1]["fps"]
     bq_launches = results["ode"][1]["ball_query"]
@@ -3691,6 +3896,7 @@ def main() -> int:
     print(json.dumps({"frozen_samplers": phase17}), flush=True)
     print(json.dumps({"data_parallel": phase18}), flush=True)
     print(json.dumps({"benchmarking": phase19}), flush=True)
+    print(json.dumps({"host_helper": phase20}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,6 +10,8 @@ says so (``torch.where``).  Probabilities come from ``PtsAugConfig``
 - box-cage y-deformation for bowl (id 1) and mug (id 5);
 - per-point jitter toward or away from the object center.
 
+``get_rotation`` builds one rotation from Euler angles in degrees.
+
 The random numbers of one call are drawn together by ``augment_draws`` from
 a ``torch.Generator``, or passed in, so tests can give the JAX package's
 draws to both.
@@ -23,6 +25,21 @@ import torch
 
 from genpose_tpu_torch.config import PtsAugConfig
 from genpose_tpu_torch.parallel import group as parallel
+
+
+def get_rotation(x_deg, y_deg, z_deg) -> torch.Tensor:
+    """Rz @ Ry @ Rx in float32 from angles in degrees (ref
+    ``data_augmentation.py:197-213``; ``data/nocs.py::get_rotation_np`` is
+    the loader's numpy one)."""
+    x, y, z = (torch.deg2rad(torch.as_tensor(v, dtype=torch.float32))
+               for v in (x_deg, y_deg, z_deg))
+    cx, sx, cy, sy, cz, sz = torch.cos(x), torch.sin(x), torch.cos(y), torch.sin(y), \
+        torch.cos(z), torch.sin(z)
+    one, zero = torch.ones_like(x), torch.zeros_like(x)
+    rx = torch.stack([one, zero, zero, zero, cx, -sx, zero, sx, cx]).reshape(3, 3)
+    ry = torch.stack([cy, zero, sy, zero, one, zero, -sy, zero, cy]).reshape(3, 3)
+    rz = torch.stack([cz, -sz, zero, sz, cz, zero, zero, zero, one]).reshape(3, 3)
+    return rz @ ry @ rx
 
 
 def _to_object(R, t, pc):

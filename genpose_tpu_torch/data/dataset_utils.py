@@ -17,12 +17,14 @@
   rules part where a coordinate falls on .5, which eval crops hit often.
 - ``load_depth``: a depth PNG through ``utils/png.py``; a 3-channel depth
   is ``G * 256 + R`` (cv2's BGR indexing ``[:, :, 1] * 256 + [:, :, 2]``).
-- ``backproject_and_sample``: the semantics of the JAX package's host C++
-  kernel (``genpose_tpu/native/preprocess.cpp:60-127``), in numpy and
-  Python integers: float32 back-projection in the kernel's order, one
-  ``rng.integers(0, 2**63 - 1)`` seed per call, then xorshift128+ seeded by
-  splitmix64, a Lemire multiply-high draw and a partial Fisher-Yates.  The
-  same ``np.random.Generator`` state gives the same cloud, bit for bit.
+- ``backproject_and_sample``: the host C helper (``native/``, the port's
+  copy of ``genpose_tpu/native/preprocess.cpp``) on one instance:
+  float32 back-projection, one ``rng.integers(0, 2**63 - 1)`` seed per
+  call, then xorshift128+ seeded by splitmix64, a Lemire multiply-high draw
+  and a partial Fisher-Yates.  The same ``np.random.Generator`` state gives
+  the JAX package's cloud, bit for bit.  ``backproject_and_sample_ref`` is
+  its plain version in numpy and Python integers (the tests' oracle, and
+  the path under ``GENPOSE_NO_NATIVE``).
 
 - ``defor_2D``: the training mask's boundary noise as the JAX package's
   cv2 calls compute it.  ``cv2.erode(mask, kernel, rand_r)`` puts
@@ -39,6 +41,7 @@ import functools
 
 import numpy as np
 
+from genpose_tpu_torch import native
 from genpose_tpu_torch.utils import png
 
 @functools.lru_cache(maxsize=8)
@@ -331,7 +334,8 @@ def sample_points(pcl: np.ndarray, n_pts: int, rng: np.random.Generator) -> np.n
 
 
 # ---------------------------------------------------------------------------
-# the host kernel's sampler (preprocess.cpp:21-111), in Python integers
+# the host C helper's sampler (native/preprocess.cpp), in Python integers:
+# the plain version of its stream
 # ---------------------------------------------------------------------------
 
 _M64 = (1 << 64) - 1
@@ -379,25 +383,54 @@ def _native_sample(pcl: np.ndarray, n_pts: int, seed: int) -> np.ndarray:
     return pcl[np.asarray(picks, np.int64)]
 
 
-def backproject_and_sample(depth, K, xymap, mask, n_pts: int,
-                           rng: np.random.Generator, scale: float = 1.0):
-    """Masked back-projection + sampling of one instance, as the JAX
-    package's native kernel computes it (``dataset_utils.py:214-241`` with
-    ``native.available()``).  Returns ``(n_valid, pcl [n_pts, 3] float32)``."""
+def _intrinsics(K, scale):
     f32 = np.float32
     Kf = np.asarray(K).reshape(-1)
-    fx, fy, cx, cy, s = (f32(Kf[0]), f32(Kf[4]), f32(Kf[2]), f32(Kf[5]), f32(scale))
+    return f32(Kf[0]), f32(Kf[4]), f32(Kf[2]), f32(Kf[5]), f32(scale)
+
+
+def backproject_and_sample(depth, K, xymap, mask, n_pts: int,
+                           rng: np.random.Generator, scale: float = 1.0):
+    """Masked back-projection + sampling of one instance through the host C
+    helper (``native.backproject_sample``), as the JAX package's
+    ``dataset_utils.py:214-241`` calls its copy: one seed drawn from ``rng``
+    first, the float32 intrinsics.  Returns ``(n_valid, pcl [n_pts, 3]
+    float32)``.  With ``GENPOSE_NO_NATIVE`` set, the plain version
+    ``backproject_and_sample_ref`` computes the same arrays."""
+    if native.disabled():
+        return backproject_and_sample_ref(depth, K, xymap, mask, n_pts, rng, scale)
+    fx, fy, cx, cy, s = _intrinsics(K, scale)
     seed = int(rng.integers(0, 2**63 - 1))
+    return native.backproject_sample(depth, mask, xymap[0], xymap[1], fx, fy, cx, cy, s,
+                                     n_pts, seed)
+
+
+def depth_mask_to_pcl_ref(depth, mask, xmap, ymap, fx, fy, cx, cy, scale=1.0) -> np.ndarray:
+    """Plain version of ``native.depth_mask_to_pcl``: the (n_valid, 3) cloud
+    of the pixels with depth > 0 and mask > 0, in float32 and the helper's
+    order ``(x - cx) * d * (scale / fx)``."""
+    f32 = np.float32
+    fx, fy, cx, cy, s = (f32(v) for v in (fx, fy, cx, cy, scale))
     d = np.ascontiguousarray(depth, f32).ravel()
     m = np.ascontiguousarray(mask, f32).ravel()
     valid = (d > 0) & (m > 0)
     d = d[valid]
-    xm = np.ascontiguousarray(xymap[0], f32).ravel()[valid]
-    ym = np.ascontiguousarray(xymap[1], f32).ravel()[valid]
+    xm = np.ascontiguousarray(xmap, f32).ravel()[valid]
+    ym = np.ascontiguousarray(ymap, f32).ravel()[valid]
     inv_fx, inv_fy = s / fx, s / fy
-    pcl = np.stack([(xm - cx) * d * inv_fx, (ym - cy) * d * inv_fy, d * s], axis=-1)
-    n_valid = pcl.shape[0]
-    return n_valid, _native_sample(pcl.astype(f32, copy=False), n_pts, seed)
+    return np.stack([(xm - cx) * d * inv_fx, (ym - cy) * d * inv_fy, d * s], axis=-1)
+
+
+def backproject_and_sample_ref(depth, K, xymap, mask, n_pts: int,
+                               rng: np.random.Generator, scale: float = 1.0):
+    """Plain version of ``backproject_and_sample`` in numpy and Python
+    integers (the helper's ``gp_backproject_sample``):
+    ``depth_mask_to_pcl_ref``, then ``_native_sample``'s stream.  The same
+    ``rng`` state gives the same cloud, bit for bit."""
+    fx, fy, cx, cy, s = _intrinsics(K, scale)
+    seed = int(rng.integers(0, 2**63 - 1))
+    pcl = depth_mask_to_pcl_ref(depth, mask, xymap[0], xymap[1], fx, fy, cx, cy, s)
+    return pcl.shape[0], _native_sample(pcl, n_pts, seed)
 
 
 def _erode_dilate_2x2(mask: np.ndarray):

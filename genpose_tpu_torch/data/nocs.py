@@ -11,10 +11,10 @@ of the batched 3-D augmentation (ref ``datasets_genpose.py:55-505``).
 The same ``(seed, index, visit)`` gives the JAX dataset's sample bit for
 bit: PNGs are decoded by ``utils/png.py`` (no cv2), crops are
 ``dataset_utils.crop_resize_by_warp_affine`` (cv2's NEAREST pixels), and
-back-projection and sampling reproduce the JAX package's native kernel
-stream (``dataset_utils.backproject_and_sample``).  A corrupt sample (a
-missing or unreadable file, too few valid pixels, fewer than 50 points)
-is skipped for the next index.  The colour image is decoded only for its
+back-projection and sampling run the JAX package's stream in the port's
+host C helper (``dataset_utils.backproject_and_sample``, ``native/``).  A
+corrupt sample (a missing or unreadable file, too few valid pixels, fewer
+than 50 points) is skipped for the next index.  The colour image is decoded only for its
 size and as the check that it is readable, as in JAX.
 
 A sample is a dict of numpy arrays and a path string: no tensors, so

@@ -6,7 +6,8 @@
   per-class table.  The energy training step ranks candidates by these
   errors on the device, every step.
 - ``compute_RT_errors`` / ``get_metrics``: the host-side numpy versions the
-  score loop's eval epoch calls (reference ``metrics.py:79-118, 157-187``).
+  score loop's eval epoch calls (reference ``metrics.py:79-118, 157-187``);
+  ``compute_RT_overlaps``: ``compute_RT_errors`` per instance.
 """
 
 from __future__ import annotations
@@ -91,6 +92,17 @@ def compute_RT_errors(RT_1, RT_2, class_id, handle_visibility, synset_names):
     theta = np.arccos(np.clip(cos_theta, -1.0, 1.0)) * 180 / np.pi
     shift = np.linalg.norm(T1 - T2) * 100
     return np.array([theta, shift])
+
+
+def compute_RT_overlaps(class_ids, gt_RT, pred_RT, gt_handle_visibility, synset_names):
+    """Per-instance ``compute_RT_errors`` of ``pred_RT[i]`` against
+    ``gt_RT[i]``: [num, 2] (deg, cm) (ref ``metrics.py:141-154``)."""
+    num = len(class_ids)
+    overlaps = np.zeros((num, 2))
+    for i in range(num):
+        overlaps[i, :] = compute_RT_errors(pred_RT[i], gt_RT[i], int(class_ids[i]),
+                                           gt_handle_visibility[i], synset_names)
+    return overlaps
 
 
 def get_metrics(pose_1, pose_2, class_ids, synset_names, gt_handle_visibility,

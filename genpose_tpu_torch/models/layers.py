@@ -8,6 +8,8 @@
   float32 weight are cast to ``dtype`` at use; below float32 the bias is
   added after the matmul, in ``dtype`` (two roundings, as flax), not fused
   into the GEMM.
+- ``MLP``: the JAX package's Dense -> ReLU stack (no norm), its Dense
+  layers named ``dense_{i}`` as in the flax tree.
 - ``SharedMLP`` (ref ``pytorch_utils.py:5-33``): the reference's 1x1
   Conv2d+BN+ReLU stack written as ``Dense`` over channels-last
   ``[..., C]`` tensors.  A 1x1 convolution is a feature-dim matmul, and
@@ -112,6 +114,25 @@ class Dense(nn.Linear):
             return F.linear(x, self.weight, self.bias)
         y = x @ self.weight.to(dt).t()
         return y if self.bias is None else y + self.bias.to(dt)
+
+
+class MLP(nn.Module):
+    """Dense -> ReLU for each width of ``features`` (no norm; flax ``MLP``
+    of ``genpose_tpu/models/layers.py``)."""
+
+    def __init__(self, in_features: int, features: Sequence[int],
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.n_layers = len(features)
+        c = in_features
+        for i, f in enumerate(features):
+            self.add_module(f"dense_{i}", Dense(c, f, dtype=dtype))
+            c = f
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_layers):
+            x = F.relu(getattr(self, f"dense_{i}")(x))
+        return x
 
 
 class SharedMLP(nn.Module):

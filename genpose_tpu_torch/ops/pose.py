@@ -7,11 +7,14 @@ convention (``utils/misc.py:136``: the 6D vector holds the first two
 cosines), rotation re-projection,
 (R, t) inversion, pose vector <-> (R, t) <-> 4x4, and the 4x4
 eigen-average of quaternions
-(``utils/misc.py:227-249``).  All functions are
+(``utils/misc.py:227-249``), and the geodesic rotation error
+(``utils/metrics.py:12-33``).  All functions are
 batched over leading axes and keep the JAX package's operation order.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -203,3 +206,27 @@ def average_quaternion_batch(Q: torch.Tensor, weights: torch.Tensor | None = Non
     _, vecs = torch.linalg.eigh(A)
     q_avg = vecs[..., :, -1]
     return torch.where(q_avg[..., :1] > 0, 1.0, -1.0) * q_avg
+
+
+def rot_diff_rad(rot1: torch.Tensor, rot2: torch.Tensor, chosen_axis: str | None = None,
+                 flip_axis: bool = False) -> torch.Tensor:
+    """Geodesic angle between rotations [..., 3, 3], optionally about one
+    symmetry axis (reference ``metrics.py:12-22``): ``chosen_axis`` in
+    {'x', 'y', 'z'} compares that **column** of R; ``flip_axis`` takes the
+    smaller of the angle and pi minus it."""
+    if chosen_axis is not None:
+        axis = {"x": 0, "y": 1, "z": 2}[chosen_axis]
+        diff = torch.sum(rot1[..., axis] * rot2[..., axis], dim=-1)
+        rad = torch.arccos(torch.clamp(diff, -1.0, 1.0))
+        if flip_axis:
+            rad = torch.minimum(rad, math.pi - rad)
+        return rad
+    mat_diff = rot1 @ rot2.transpose(-1, -2)
+    trace = mat_diff[..., 0, 0] + mat_diff[..., 1, 1] + mat_diff[..., 2, 2]
+    return torch.arccos(torch.clamp((trace - 1.0) / 2.0, -1.0, 1.0))
+
+
+def rot_diff_degree(rot1: torch.Tensor, rot2: torch.Tensor, chosen_axis: str | None = None,
+                    flip_axis: bool = False) -> torch.Tensor:
+    """``rot_diff_rad`` in degrees."""
+    return rot_diff_rad(rot1, rot2, chosen_axis, flip_axis) / math.pi * 180.0

@@ -1,5 +1,6 @@
 """Scalar logging (JSONL, and TensorBoard when installed), images (TensorBoard
-only) and the train clock (counterpart of ``genpose_tpu/utils/logging.py:38-110``).
+only), the train clock, a text logger and the merge of inference results
+(counterpart of ``genpose_tpu/utils/logging.py``).
 
 Replaces the reference's tensorboardX plumbing (``posenet_agent.py:553-598``)
 and ``TrainClock`` (``utils/genpose_utils.py:70-96``).  Every scalar lands in
@@ -12,6 +13,28 @@ import json
 import os
 import time
 from typing import Dict, Optional
+
+
+def setup_logger(logger_name: str, log_file: str, level=None):
+    """A ``logging`` logger writing ``asctime : message`` lines to
+    ``log_file`` (appended) and to the stream (ref ``sgpa_utils.py:54-64``).
+    A second setup of the same name replaces its handlers, so nothing is
+    written twice."""
+    import logging
+
+    logger = logging.getLogger(logger_name)
+    for h in list(logger.handlers):
+        logger.removeHandler(h)
+        h.close()
+    formatter = logging.Formatter("%(asctime)s : %(message)s")
+    fh = logging.FileHandler(log_file, mode="a")
+    fh.setFormatter(formatter)
+    logger.setLevel(level if level is not None else logging.INFO)
+    logger.addHandler(fh)
+    sh = logging.StreamHandler()
+    sh.setFormatter(formatter)
+    logger.addHandler(sh)
+    return logger
 
 
 class TrainClock:
@@ -93,3 +116,16 @@ class MetricsLogger:
         self._jsonl.close()
         if self.writer is not None:
             self.writer.close()
+
+
+def merge_results(results_ori: dict, results_new: dict) -> dict:
+    """Per-batch inference results concatenated along the first axis
+    (``pred_pose``, ``gt_pose``, ``cls_id``, ``handle_visibility``; ref
+    ``genpose_utils.py:99-110``); an empty ``results_ori`` gives
+    ``results_new`` as it is."""
+    import numpy as np
+
+    if not results_ori:
+        return results_new
+    return {k: np.concatenate([np.asarray(results_ori[k]), np.asarray(results_new[k])], axis=0)
+            for k in ("pred_pose", "gt_pose", "cls_id", "handle_visibility")}
