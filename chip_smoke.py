@@ -191,7 +191,8 @@ non-zero and prints no result line):
    Heun-500 request, beside phase 12's host-clock seconds for that request;
 20. the host C helper (``genpose_tpu_torch/native``, ``g++``; built from its
    source after the CUDA kernels, before any phase calls it): the train
-   loader's first batch on phase 15's tree fetched through it and through
+   loader's first batch (HELPER_BATCH samples) on phase 15's tree fetched
+   through it and through
    the plain Python stream (``GENPOSE_NO_NATIVE=1``), bit for bit, with one
    helper call per sample on the first and none on the second; its five
    entry points (``depth_mask_to_pcl``, ``sample_points``,
@@ -200,15 +201,32 @@ non-zero and prints no result line):
    exact ties); ms per call of the helper and the Python stream on
    120x120, 240x240 and 440x440 ROIs; one sample's host split under the
    plain stream beside phase 15's split and loader rates, which go through
-   the helper.
+   the helper;
+21. the convergence check (``genpose_tpu_torch/tools/convergence_check.py``,
+   ``convergence``): the released score net at full width (bs=64, N=1024,
+   repeat 20, Adam lr 1e-3, warm-up 100, float32) trained on the synthetic
+   4-object task until Heun-100 samples from its EMA shadow meet the
+   criterion (rotation under 41 deg and translation under 3.9 cm, checked
+   every CONV_EVAL_EVERY steps; failing by CONV_MAX_STEPS fails the phase);
+   an energy net trained with the ranking loss under the JAX test's bounds
+   (ranking loss under 0.7 and down by 0.15, best candidate's energy above
+   the worst's in more than 80% of a held-out batch); both saved and served
+   frozen through ``InferencePipeline(score_ckpt=, energy_ckpt=)`` (K=50,
+   Heun-100, top 60% pooled) on 64 held-out clouds, whose pooled poses must
+   meet the criterion; steps and training seconds to the criterion,
+   samples/s, the losses and errors before and after, the served errors
+   (pooled, best-energy, untrained) and the request's seconds; FPS 3 +
+   ball query 3 per score step, evaluation, energy iteration and request.
+   It runs after phase 8, with the other training phases.
 
 Checkpoints and metrics of phase 7, the trees and results of phases 9-12,
-the converted checkpoints of phase 14 and the tree and results of phase 15
-go under ``build/chip_smoke/`` in the checkout.  The last lines are the
-training numbers, the evaluation and tracking numbers, the frozen arms, the
-bfloat16 arms, the checkpoint and sampler numbers, the training CLI's
-numbers, phase 16's, 17's, 18's, 19's and 20's numbers, the card line, one
-JSON line describing each kernel, and ``{"ok": true, "device": {...}}``.
+the converted checkpoints of phase 14, the tree and results of phase 15 and
+the trained pair of phase 21 go under ``build/chip_smoke/`` in the
+checkout.  The last lines are the training numbers, the evaluation and
+tracking numbers, the frozen arms, the bfloat16 arms, the checkpoint and
+sampler numbers, the training CLI's numbers, phase 16's, 17's, 18's, 19's,
+20's and 21's numbers, the card line, one JSON line describing each
+kernel, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -218,7 +236,6 @@ import copy
 import io
 import json
 import os
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -241,13 +258,6 @@ TRAIN_UPDATE_RTOL = 0.2  # phase 8: a parameter's update, relative to its norm
 OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"  # checkpoints, logs
 EVAL_SCENES = 24  # Real/test scenes of the synthetic tree (phases 9-10): the only cut
 EVAL_T0, TRACK_T0 = 0.55, 0.15  # scripts/eval_single.sh, scripts/eval_tracking.sh
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
-    return out.splitlines()[0]
 
 
 @contextlib.contextmanager
@@ -766,7 +776,7 @@ def cpu_gpu_agreement(dev, label: str = "", **overrides):
     return worst
 
 
-def fused_geometry_path(dev):
+def fused_geometry_path(dev, card):
     """Phase 4: the fused kernel's path, the three-stage geometry chain of
     ``genpose_tpu_torch/tools/bench_fused_geometry.py``, once with each arm
     and the counts read around it; then both arms timed."""
@@ -806,7 +816,7 @@ def fused_geometry_path(dev):
           f"{abs(times['chain_fused_win_pct']):.2f}% for the fused kernel; per stage "
           + ", ".join(f"{k} {v:.4f}" for k, v in times.items() if k.startswith("s"))
           + f"; device time per chain (profiled): fused kernel {_ms(profiled[True])}, "
-          f"FPS + ball query {_ms(profiled[False])}; {card_line()}", flush=True)
+          f"FPS + ball query {_ms(profiled[False])}; {card}", flush=True)
     return launches[True]["fps_bq_fused"], times, profiled[True]
 
 
@@ -2223,8 +2233,9 @@ CLI_EVAL_REPEAT = 5  # phase 15's --eval flow; the config default is 20 (cut to 
 # 16 came and to 5 when phase 17 came, to keep the script near half its time limit)
 # phase 15's --save_video epoch samples this many Heun steps (the config's 500
 # would draw 125 frames a sample: ~20 s of splatting and ~16 s of PNG
-# writing a mode on the host); its frames are the trajectory's last half
-CLI_VIDEO_STEPS = 100
+# writing a mode on the host); its frames are the trajectory's last half.
+# Cut from 100 to 50 when phase 21 came, to keep the script near 1000 s.
+CLI_VIDEO_STEPS = 50
 
 
 @contextlib.contextmanager
@@ -2701,7 +2712,7 @@ NEW_CONFIGS = {
 NEW_TRAIN_CONFIGS, NEW_TRAIN_STEPS = ("pointnet_and_pointnet2", "full"), 3
 
 
-def new_config_kernels(dev):
+def new_config_kernels(dev, card):
     """Phase 16 (1): FPS and ball query against their plain versions, bit
     for bit, at every stage of the ``full``, ``lighter`` and ``dense`` chains
     (``Pointnet2MSG``'s chain is ``full``'s first four stages) at B=64,
@@ -2780,7 +2791,7 @@ def new_config_kernels(dev):
                       for r in fps_rows)
           + "; " + "; ".join(f"ball query {r['shape']} {_ms(r['device_ms'])} (bound "
                              f"{r['bound_ms']:.4f}, {r['configs']})" for r in bq_rows)
-          + f"; {card_line()}", flush=True)
+          + f"; {card}", flush=True)
     return fps_rows, bq_rows
 
 
@@ -2913,7 +2924,7 @@ def new_configurations(dev, card, pts: np.ndarray, light_step_s: float):
     """Phase 16: the kernels at the new configurations' shapes, the SA + FP
     encoder, serving under each new configuration and score steps."""
     t0 = time.perf_counter()
-    fps_rows, bq_rows = new_config_kernels(dev)
+    fps_rows, bq_rows = new_config_kernels(dev, card)
     out = {"fps_rows": fps_rows, "bq_rows": bq_rows, "msg_encoder": msg_encoder_on_card(dev, card)}
     torch.cuda.empty_cache()
     out["serving"] = new_config_serving(dev, card, pts)
@@ -3510,6 +3521,10 @@ def benchmarking_module(dev, card, pts: np.ndarray, frozen_heun_s: float):
 # ---------------------------------------------------------------------------
 HELPER_ROI_SIDES = (120, 240, 440)  # square ROIs of the helper's timing, half the pixels valid
 HELPER_REPEATS = {"c": 40, "python": 8}  # calls per timed turn of each path
+# the batch of the loader whose first batch goes through both paths: the
+# config's 192 until phase 21 came, cut to keep the script near 1000 s (the
+# thread loader fetches ~18 samples/s, and the prefetch doubles the calls)
+HELPER_BATCH = 48
 
 
 @contextlib.contextmanager
@@ -3532,7 +3547,7 @@ def no_native(on: bool = True):
 
 def _first_loader_batch(tree: str, plain: bool):
     """The first batch of the train loader (thread mode, the config's
-    defaults), with the inputs of each ``backproject_and_sample`` call it
+    defaults but a batch of HELPER_BATCH), with the inputs of each ``backproject_and_sample`` call it
     made (the generator copied before the call) and the number of the
     helper's calls."""
     from genpose_tpu_torch import native
@@ -3554,7 +3569,8 @@ def _first_loader_batch(tree: str, plain: bool):
     nocs.backproject_and_sample, native.backproject_sample = recorded, counted
     try:
         with no_native(plain):
-            cfg = get_config(["--data_path", tree, "--loader_mode", "thread"])
+            cfg = get_config(["--data_path", tree, "--loader_mode", "thread",
+                              "--batch_size", str(HELPER_BATCH)])
             loader = get_data_loaders_from_cfg(cfg, ["train"])["train_loader"]
             it = iter(loader)
             batch = next(it)
@@ -3695,11 +3711,94 @@ def host_helper(card: str, tree: str, cli: dict, helper_build: dict):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the convergence check (genpose_tpu_torch/tools/convergence_check.py)
+# ---------------------------------------------------------------------------
+CONV_EVAL_EVERY = 250  # steps between the criterion's evaluations
+# the cap on score steps: float32 runs reached the criterion at steps 5,750-
+# 6,750 on the H100 (PERF.md), the JAX tool's float32 run at 8,500 on its own
+# chip, under a cap of 9,000
+CONV_MAX_STEPS = 9000
+
+
+def convergence(dev, card):
+    """Phase 21: ``tools/convergence_check.py`` at full width, float32: the
+    score net trained on the 4-object task (bs=64, N=1024, repeat 20, Adam
+    lr 1e-3, warm-up 100) until its Heun-100 samples from the EMA shadow lie
+    under the criterion (rotation 41 deg and translation 3.9 cm, checked
+    every CONV_EVAL_EVERY steps, at most CONV_MAX_STEPS), the energy net with
+    the ranking loss (``ENERGY_ITERS`` iterations, the JAX test's bounds),
+    both saved and served frozen through ``InferencePipeline(score_ckpt=,
+    energy_ckpt=)`` (K=50, Heun-100, top 60% pooled) on 64 held-out clouds:
+    the pooled poses must meet the criterion.  FPS 3 + ball query 3 in every
+    score step, evaluation, energy iteration and served request."""
+    from genpose_tpu_torch.tools import convergence_check as cc
+    from genpose_tpu_torch.training.agent import PoseAgent
+    from genpose_tpu_torch.training.checkpoints import save_checkpoint
+
+    t_phase = time.perf_counter()
+    k = cc.knobs({})  # the tool's defaults, whatever the environment holds
+    k.update(eval_every=CONV_EVAL_EVERY, n_steps=CONV_MAX_STEPS)
+    clouds = torch.from_numpy(cc.make_task())
+    out_dir = OUT_DIR / "convergence"
+
+    def log(line):
+        if not line.startswith(("step ", "energy iteration ")):
+            print(f"phase 21 {line}", flush=True)
+
+    three = {"fps": 3, "ball_query": 3}
+    score = PoseAgent(cc.score_config(k), "score", device=dev, steps_per_epoch=100)
+    run = cc.train_score(score, clouds, k, log)
+    if run["met_at"] is None:
+        raise AssertionError(f"phase 21: the criterion was not met within {CONV_MAX_STEPS} "
+                             f"steps: {run['evals'][-1]}")
+    if run["launches_per_step"] != three or run["launches_per_eval"] != three:
+        raise AssertionError(f"phase 21 launches: {run['launches_per_step']} per step, "
+                             f"{run['launches_per_eval']} per evaluation")
+    score_ckpt = save_checkpoint(str(out_dir / "score"), score, 0)
+    del score
+    torch.cuda.empty_cache()
+    energy, en = cc.train_energy_ranking(cc.energy_config(k), clouds, cc.ENERGY_ITERS, dev, log)
+    if en["launches_per_iteration"] != three:
+        raise AssertionError(f"phase 21 energy launches {en['launches_per_iteration']}")
+    energy_ckpt = save_checkpoint(str(out_dir / "energy"), energy, 0)
+    del energy
+    torch.cuda.empty_cache()
+    served = cc.serve_trained(cc.serving_config(k), score_ckpt, energy_ckpt, clouds, dev, log)
+    cc.check_served(served, k, criterion=True)
+    for arm in ("trained", "untrained"):
+        if served[arm]["launches"] != three:
+            raise AssertionError(f"phase 21 served {arm}: launches {served[arm]['launches']}")
+    torch.cuda.empty_cache()
+    e0, e1 = run["evals"][0], run["evals"][-1]
+    out = {"score": run, "energy": en, "served": served,
+           "seconds": time.perf_counter() - t_phase}
+    t, u = served["trained"], served["untrained"]
+    print(f"phase 21 convergence (bs={k['batch_size']}, N={cc.N_POINTS}, repeat 20, Adam lr "
+          f"{k['lr']:g}, float32): criterion (rot < {k['rot_crit']} deg, trans < "
+          f"{k['trans_crit']} cm) met at step {run['met_at']} after {run['train_s']:.1f} s of "
+          f"training = {run['samples_per_s']:.1f} samples/s (first step {run['first_step_s']:.2f}"
+          f" s and {len(run['evals']) - 1} evaluations {run['eval_s']:.1f} s left out); DSM "
+          f"{run['dsm_first']:.3f} -> {run['dsm_last']:.3f}; rot {e0['rot_deg']:.2f} -> "
+          f"{e1['rot_deg']:.2f} deg, trans {e0['trans_m'] * 100:.2f} -> "
+          f"{e1['trans_m'] * 100:.2f} cm; energy ranking {en['ranking_first10']:.3f} -> "
+          f"{en['ranking_last10']:.3f}, best above worst in {en['order_fraction']:.3f}, "
+          f"{en['s_per_iteration']:.4f} s per iteration; served frozen pooled rot "
+          f"{t['pooled']['rot_deg']:.2f} deg trans {t['pooled']['trans_cm']:.2f} cm, best-energy "
+          f"rot {t['best']['rot_deg']:.2f} deg trans {t['best']['trans_cm']:.2f} cm (untrained "
+          f"pooled {u['pooled']['rot_deg']:.2f} deg, {u['pooled']['trans_cm']:.2f} cm), request "
+          f"{t['request_s']:.4f} s; FPS + ball query per score step "
+          f"{run['launches_per_step']}, per energy iteration {en['launches_per_iteration']}, per "
+          f"request {t['launches']}; took {out['seconds']:.1f} s; {card}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from genpose_tpu_torch.ops import _build
+    from genpose_tpu_torch.utils.benchmarking import card_line
 
     dev = torch.device("cuda")
     card = card_line()
@@ -3716,7 +3815,7 @@ def main() -> int:
     fps_rows, bq_rows, fused_rows, max_err = check_kernels(dev)
     for row in fps_rows + bq_rows + fused_rows:
         print(json.dumps(row), flush=True)
-    fused_launches, chain_times, fused_profiled = fused_geometry_path(dev)
+    fused_launches, chain_times, fused_profiled = fused_geometry_path(dev, card)
 
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -3743,6 +3842,10 @@ def main() -> int:
     training = training_path(dev, card)
     torch.cuda.empty_cache()
     training_cpu_gpu_agreement(dev)
+    torch.cuda.empty_cache()
+    # phase 21 runs with the other training phases, before the process holds
+    # the later phases' state: there its steps ran ~25% slower (PERF.md)
+    phase21 = convergence(dev, card)
     torch.cuda.empty_cache()
     evaluation, nocs, agents, eval_ctx = evaluation_path(dev, card)
     tracking, eager_poses, eager_metrics = tracking_path(dev, card, nocs, agents)
@@ -3815,8 +3918,8 @@ def main() -> int:
         paths, of the frozen arms of phase 12, of the bfloat16 arms of
         phase 13, of the checkpoint and sampler paths of phase 14, of the
         training CLI's runs of phase 15, of phase 16's configurations, of
-        phase 17's frozen samplers, of phase 18's ranks and of phase 19's
-        chained geometry."""
+        phase 17's frozen samplers, of phase 18's ranks, of phase 19's
+        chained geometry and of phase 21's convergence check."""
         fz = frozen_arms
         p17 = phase17
         return {"evaluation_stage2_launches": evaluation["launches"]["stage 2"][k],
@@ -3867,7 +3970,13 @@ def main() -> int:
                           for r in res["launches_per_rank"]]
                     for arm, res in phase18.items()
                     if isinstance(res, dict) and "launches_per_rank" in res},
-                "benchmark_geometry_chain_launches": phase19["geometry"]["launches"][k]}
+                "benchmark_geometry_chain_launches": phase19["geometry"]["launches"][k],
+                "convergence_score_step_launches": phase21["score"]["launches_per_step"][k],
+                "convergence_evaluation_launches": phase21["score"]["launches_per_eval"][k],
+                "convergence_energy_iteration_launches":
+                    phase21["energy"]["launches_per_iteration"][k],
+                "convergence_served_request_launches":
+                    phase21["served"]["trained"]["launches"][k]}
 
     kernels = [
         summary("fps", "genpose_tpu_torch/csrc/fps.cu", "genpose_tpu/ops/fps_pallas.py:75",
@@ -3897,6 +4006,7 @@ def main() -> int:
     print(json.dumps({"data_parallel": phase18}), flush=True)
     print(json.dumps({"benchmarking": phase19}), flush=True)
     print(json.dumps({"host_helper": phase20}), flush=True)
+    print(json.dumps({"convergence": phase21}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -21,9 +21,13 @@ PyTorch's optimizers:
 
 Scalars that the JAX package computes in float32 (the schedule, bias
 corrections, EMA decay) are computed in numpy float32 here.  Parameters are
-updated in place.  Optimizer moments and the EMA shadow are created at the
-first update, so an agent that only serves holds neither; until then the
-shadow *is* the live parameters.
+updated in place, by multi-tensor ops (``torch._foreach_*``: a handful of
+launches a step on a card, where one per tensor and operation made the
+update ~10 ms of a step) that do the per-tensor arithmetic element for
+element (``tests/test_torch_trainer.py`` holds them bit for bit).
+Optimizer moments and the EMA shadow are created at the first update, so
+an agent that only serves holds neither; until then the shadow *is* the
+live parameters.
 """
 
 from __future__ import annotations
@@ -73,9 +77,9 @@ class EMA:
         n = self.num_updates + 1
         decay = np.minimum(f32(self.decay), (f32(1.0) + f32(n)) / (f32(10.0) + f32(n)))
         rate = float(f32(1.0) - decay)
-        for k, p in params.items():
-            s = self.shadow[k]
-            s.sub_((s - p) * rate)
+        shadow = [self.shadow[k] for k in params]
+        torch._foreach_sub_(shadow, torch._foreach_mul(
+            torch._foreach_sub(shadow, list(params.values())), rate))
         self.num_updates = n
 
 
@@ -113,32 +117,40 @@ class TrainState:
             self.ema.shadow = {k: p.detach().clone() for k, p in params.items()}
         if self.opt_state is None:
             self.opt_state = self._init_opt_state(params)
-        grads = dict(grads)
+        names = list(params)
+        ps = [params[k] for k in names]
+        gs = [grads[k] for k in names]
         if self.grad_clip and self.grad_clip > 0:
-            # a select on the device, not a branch on the host: no sync per step
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+            # a select on the device, not a branch on the host: no sync per
+            # step.  Kept gradients are divided and multiplied by 1, exactly.
+            norm = torch.sqrt(sum(torch.sum(sq) for sq in torch._foreach_mul(gs, gs)))
             keep = norm < self.grad_clip
-            grads = {k: torch.where(keep, g, (g / norm) * self.grad_clip)
-                     for k, g in grads.items()}
+            one = torch.ones_like(norm)
+            gs = torch._foreach_mul(torch._foreach_div(gs, torch.where(keep, one, norm)),
+                                    torch.where(keep, one, one * self.grad_clip))
         lr = self.schedule(self.step)
         count = self.step + 1
         if self.optimizer == "Adam":
             b1, b2, eps = 0.9, 0.999, 1e-8
             c1 = float(f32(1.0) - f32(b1) ** f32(count))
             c2 = float(f32(1.0) - f32(b2) ** f32(count))
-            mu, nu = self.opt_state["mu"], self.opt_state["nu"]
-            for k, p in params.items():
-                g = grads[k]
-                mu[k] = (1 - b1) * g + b1 * mu[k]
-                nu[k] = (1 - b2) * (g * g) + b2 * nu[k]
-                update = (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + eps)
-                p.copy_(p + (-lr) * update)
+            mu = [self.opt_state["mu"][k] for k in names]
+            nu = [self.opt_state["nu"][k] for k in names]
+            mu = torch._foreach_add(torch._foreach_mul(gs, 1 - b1), torch._foreach_mul(mu, b1))
+            nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(gs, gs), 1 - b2),
+                                    torch._foreach_mul(nu, b2))
+            denom = torch._foreach_sqrt(torch._foreach_div(nu, c2))
+            torch._foreach_add_(denom, eps)
+            update = torch._foreach_div(torch._foreach_div(mu, c1), denom)
+            self.opt_state["mu"].update(zip(names, mu))
+            self.opt_state["nu"].update(zip(names, nu))
         else:
-            trace = self.opt_state["trace"]
-            for k, p in params.items():
-                g = grads[k] + 1e-4 * p  # weight decay, then momentum
-                trace[k] = g + 0.9 * trace[k]
-                p.copy_(p + (-lr) * trace[k])
+            trace = [self.opt_state["trace"][k] for k in names]
+            # weight decay, then momentum
+            gs = torch._foreach_add(gs, torch._foreach_mul(ps, 1e-4))
+            update = torch._foreach_add(gs, torch._foreach_mul(trace, 0.9))
+            self.opt_state["trace"].update(zip(names, update))
+        torch._foreach_add_(ps, torch._foreach_mul(update, -lr))
         self.step = count
         self.ema.update(params)
 

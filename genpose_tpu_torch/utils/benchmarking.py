@@ -7,11 +7,13 @@
 - ``carrier`` / ``time_chain`` / ``time_chain_marginal``: a chain of calls
   serialised by a data dependence and timed as one, and its marginal
   per-call time from chains of n and 2n calls;
-- ``flops_of``: the matrix-product operations of one call.
+- ``flops_of``: the matrix-product operations of one call;
+- ``card_line``: the card's name and power limit, to print beside a time.
 """
 
 from __future__ import annotations
 
+import subprocess
 import time
 from typing import Callable, Optional, Tuple
 
@@ -25,6 +27,15 @@ from genpose_tpu_torch.utils.weights import perturb_
 # tensor cores and 67 TFLOPS float32 outside them (NVIDIA H100 Tensor Core
 # GPU datasheet, SXM5 column).
 PEAK_FLOPS = {"H100": {torch.bfloat16: 989e12, torch.float32: 67e12}}
+
+
+def card_line() -> str:
+    """The first card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    return out.splitlines()[0]
 
 
 def peak_flops(dtype: torch.dtype = torch.bfloat16) -> Optional[float]:

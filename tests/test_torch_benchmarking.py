@@ -4,9 +4,11 @@
 ``flops_of`` counts one ``Dense`` as 2 M N K; the chained timers return a
 positive time per call on the host clock; ``derandomize_`` moves every
 parameter as ``utils/weights.py::perturb_`` does; ``peak_flops`` has no
-number without a card.
+number without a card; ``card_line`` is the first card's line of
+``nvidia-smi`` and raises where there is none.
 """
 
+import subprocess
 import time
 
 import pytest
@@ -74,3 +76,24 @@ def test_peak_flops_needs_a_card(monkeypatch):
     assert bm.peak_flops(torch.bfloat16) is None
     assert bm.PEAK_FLOPS["H100"][torch.bfloat16] == 989e12
     assert bm.PEAK_FLOPS["H100"][torch.float32] == 67e12
+
+
+def test_card_line_is_the_first_cards_line(monkeypatch):
+    seen = []
+
+    def run(cmd, **kw):
+        seen.append((cmd, kw))
+        return subprocess.CompletedProcess(
+            cmd, 0, stdout="NVIDIA H100 80GB HBM3, 700.00 W\nNVIDIA H100 80GB HBM3, 500.00 W\n")
+
+    monkeypatch.setattr(bm.subprocess, "run", run)
+    assert bm.card_line() == "NVIDIA H100 80GB HBM3, 700.00 W"
+    assert seen[0][0] == ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
+    assert seen[0][1]["check"]
+
+    def missing(cmd, **kw):
+        raise FileNotFoundError("nvidia-smi")
+
+    monkeypatch.setattr(bm.subprocess, "run", missing)
+    with pytest.raises(FileNotFoundError):
+        bm.card_line()

@@ -8,6 +8,11 @@ under another name or in another module (which must exist), or
 ``NO_COUNTERPART`` says in one line why the name has none by nature.  A
 name the port simply lacks fails its module's case; so does a table entry
 for a name the JAX package no longer has or the port now defines.
+
+The repository's root ``tools/`` are held alike: each script that uses the
+JAX package (``genpose_tpu`` named in its text) is in ``ROOT_TOOLS``, with
+its port counterpart (which must exist), or in ``ROOT_TOOLS_WITHOUT`` with
+one line saying why it has none yet.
 """
 
 import ast
@@ -58,6 +63,37 @@ NO_COUNTERPART = {
     "ops/pointcloud.py::one_hot_gather": "a row gather as a one-hot matmul for the TPU's MXU; "
                                          "the port gathers by indexing",
 }
+
+
+# root tools/ script -> the port's counterpart, relative to the repository
+ROOT_TOOLS = {
+    "tpu_convergence_check.py": "genpose_tpu_torch/tools/convergence_check.py",
+    "bench_fused_geometry.py": "genpose_tpu_torch/tools/bench_fused_geometry.py",
+    "port_torch_ckpt.py": "genpose_tpu_torch/tools/port_torch_ckpt.py",
+    "real275_parity_runbook.sh": "genpose_tpu_torch/tools/real275_parity_runbook.sh",
+}
+
+_MEASURED = "measured by chip_smoke.py phases; queued for the benchmark PR"
+# root tools/ script -> why the port has no counterpart yet
+ROOT_TOOLS_WITHOUT = {
+    "orbax_to_port.py": "the bridge itself: reads a JAX checkpoint where JAX runs and writes "
+                        "the port's format, which training/checkpoints.py loads",
+    "profile_pipeline.py": _MEASURED,
+    "profile_train.py": _MEASURED,
+    "profile_energy_train.py": _MEASURED,
+    "profile_geometry.py": _MEASURED,
+    "profile_bs1.py": _MEASURED,
+    "bench_ballquery.py": _MEASURED,
+    "bench_s0_variants.py": _MEASURED,
+    "bench_freeze_ab.py": _MEASURED,
+    "bench_loader.py": _MEASURED,
+    "bench_trainer_e2e.py": _MEASURED,
+}
+
+
+def _root_tools_using_jax() -> list:
+    return sorted(p.name for p in (ROOT / "tools").iterdir()
+                  if p.suffix in (".py", ".sh") and re.search(r"\bgenpose_tpu\b", p.read_text()))
 
 
 def _public_names(path: Path) -> list:
@@ -117,3 +153,14 @@ def test_host_helper_has_every_c_entry_point():
     want = entry_points(JAX / "native" / "preprocess.cpp")
     assert len(want) == 5
     assert entry_points(PORT / "native" / "preprocess.cpp") == want
+
+
+def test_every_root_tool_has_an_entry():
+    """A root tool that uses the JAX package names its port counterpart or
+    says why it has none; no entry names a tool that is gone."""
+    tools = _root_tools_using_jax()
+    assert not set(ROOT_TOOLS) & set(ROOT_TOOLS_WITHOUT)
+    assert sorted([*ROOT_TOOLS, *ROOT_TOOLS_WITHOUT]) == tools
+    for name, port in ROOT_TOOLS.items():
+        assert (ROOT / port).is_file(), f"tools/{name}: {port} is missing"
+    assert all(why.strip() for why in ROOT_TOOLS_WITHOUT.values())

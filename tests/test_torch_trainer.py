@@ -18,6 +18,7 @@ from genpose_tpu_torch.models import pointnet2
 from genpose_tpu_torch.runners.trainer import results_dirs, train_energy, train_score
 from genpose_tpu_torch.training.agent import PoseAgent
 from genpose_tpu_torch.training.checkpoints import latest_checkpoint, load_checkpoint, load_clock
+from genpose_tpu_torch.training.state import create_train_state
 from genpose_tpu_torch.utils.logging import TrainClock
 from genpose_tpu_torch.utils.weights import perturb_
 
@@ -126,3 +127,74 @@ def test_train_energy_without_ranking_distills(tmp_path):
     with pytest.raises(ValueError):
         train_energy(cfg, _loader(3), _loader(3), student, None, ranking=True,
                      out_dir=str(tmp_path))
+
+
+def _per_tensor_update(state, params, grads):
+    """clip -> Adam or SGD -> EMA written tensor by tensor, the arithmetic
+    that ``TrainState.apply_gradients`` runs as multi-tensor ops."""
+    if state.ema.shadow is None:
+        state.ema.shadow = {k: p.clone() for k, p in params.items()}
+    if state.opt_state is None:
+        state.opt_state = state._init_opt_state(params)
+    if state.grad_clip > 0:
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        grads = {k: torch.where(norm < state.grad_clip, g, (g / norm) * state.grad_clip)
+                 for k, g in grads.items()}
+    lr, count = state.schedule(state.step), state.step + 1
+    for k, p in params.items():
+        g = grads[k]
+        if state.optimizer == "Adam":
+            c1 = float(np.float32(1) - np.float32(0.9) ** np.float32(count))
+            c2 = float(np.float32(1) - np.float32(0.999) ** np.float32(count))
+            mu, nu = state.opt_state["mu"], state.opt_state["nu"]
+            mu[k] = (1 - 0.9) * g + 0.9 * mu[k]
+            nu[k] = (1 - 0.999) * (g * g) + 0.999 * nu[k]
+            update = (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + 1e-8)
+        else:
+            trace = state.opt_state["trace"]
+            trace[k] = (g + 1e-4 * p) + 0.9 * trace[k]
+            update = trace[k]
+        p.copy_(p + (-lr) * update)
+    state.step = count
+    n = state.ema.num_updates + 1
+    decay = np.minimum(np.float32(0.999), (np.float32(1) + np.float32(n)) /
+                       (np.float32(10) + np.float32(n)))
+    for k, p in params.items():
+        s = state.ema.shadow[k]
+        s.sub_((s - p) * float(np.float32(1) - decay))
+    state.ema.num_updates = n
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+@pytest.mark.parametrize("optimizer", ["Adam", "SGD"])
+@pytest.mark.parametrize("grad_clip", [1.0, 0.3, 0.0])
+def test_multi_tensor_update_is_the_per_tensor_arithmetic(grad_clip, optimizer, device):
+    """30 updates of params of several shapes, gradients from 1e-8 to 3
+    (norms either side of the clip; ``grad_clip`` 0 turns it off): params,
+    moments and EMA shadow bit for bit."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and the CUDA toolkit")
+    rng = np.random.RandomState(0)
+    shapes = {"a": (40, 70), "b": (160,), "c": (3, 3, 5), "d": (2,), "e": (512, 300)}
+    init = {k: torch.from_numpy(rng.randn(*s).astype(np.float32)).to(device)
+            for k, s in shapes.items()}
+    kw = dict(base_lr=1e-3, warmup_steps=3, decay_per_epoch=0.3, steps_per_epoch=4,
+              grad_clip=grad_clip, ema_rate=0.999, optimizer=optimizer)
+    fused, plain = create_train_state(**kw), create_train_state(**kw)
+    pf = {k: v.clone() for k, v in init.items()}
+    pp = {k: v.clone() for k, v in init.items()}
+    clipped = 0
+    for n in range(30):
+        scale = 10.0 ** rng.randint(-6, 3) / 30
+        g = {k: torch.from_numpy((rng.randn(*s) * scale).astype(np.float32)).to(device)
+             for k, s in shapes.items()}
+        clipped += float(torch.sqrt(sum(torch.sum(x * x) for x in g.values()))) >= 1.0
+        fused.apply_gradients(pf, g)
+        with torch.no_grad():
+            _per_tensor_update(plain, pp, g)
+        for k in shapes:
+            assert torch.equal(pf[k], pp[k]), (n, k)
+            assert torch.equal(fused.ema.shadow[k], plain.ema.shadow[k]), (n, k)
+            for m in fused.opt_state:
+                assert torch.equal(fused.opt_state[m][k], plain.opt_state[m][k]), (n, k, m)
+    assert 0 < clipped < 30  # norms on both sides of 1.0 (and of 0.3)
