@@ -1601,16 +1601,36 @@ def _agreement(label: str, a: dict, b: dict) -> str:
     return f"not bit for bit, max |a-b|/(1+|b|) {worst:.3e} <= {FROZEN_TOL}"
 
 
-def _graph_stats(*agents):
+@contextlib.contextmanager
+def _traced():
+    """The program's tracing on for a freeze phase: yields the list that
+    receives the phase's span records when it ends."""
+    from genpose_tpu_torch.utils import trace
+
+    records = []
+    trace.drain()
+    trace.enable()
+    try:
+        yield records
+    finally:
+        trace.disable()
+        records.extend(trace.drain()[0])
+
+
+def _graph_stats(records):
     """Warm-up and capture (+ instantiate) seconds and graph count of each
-    frozen program of the agents."""
+    frozen program captured in a traced phase: its ``frozen.capture`` span,
+    less the ``frozen.warmup`` span inside it."""
+    warmups = {r["parent"]: r for r in records if r["name"] == "frozen.warmup"}
     out = {}
-    for a in agents:
-        programs = a._frozen.programs if a._frozen is not None else {}
-        for key, prog in programs.items():
-            out[f"{a.mode} {key[0]} {key[1]}x{key[2]}"] = {
-                "warmup_s": prog.warmup_s, "capture_s": prog.capture_s,
-                "graphs": len(prog.segments)}
+    for r in records:
+        if r["name"] != "frozen.capture":
+            continue
+        a, w = r["attrs"], warmups.get(r["id"])
+        warmup_s = (w["end_ns"] - w["start_ns"]) / 1e9 if w is not None else 0.0
+        out[f"{a['mode']} {a['kind']} {a['rows']}x{a['K']}"] = {
+            "warmup_s": warmup_s, "capture_s": (r["end_ns"] - r["start_ns"]) / 1e9 - warmup_s,
+            "graphs": a["graphs"]}
     return out
 
 
@@ -1636,7 +1656,8 @@ def frozen_serving(dev, card, pts: np.ndarray):
         torch.cuda.empty_cache()
         reserved0 = torch.cuda.memory_reserved()
         t0 = time.perf_counter()
-        pipe.freeze().warmup()
+        with _traced() as captured:
+            pipe.freeze().warmup()
         freeze_s = time.perf_counter() - t0
         torch.cuda.empty_cache()
         held_mb = (torch.cuda.memory_reserved() - reserved0) / 2 ** 20
@@ -1648,7 +1669,7 @@ def frozen_serving(dev, card, pts: np.ndarray):
                                  f"expected {2 * chunks}")
         how = _agreement(f"serving {sampler}", got, eager)
         frozen_prof = device_profile(request, f"serving {sampler}, frozen request")
-        graphs = _graph_stats(pipe.score_agent, pipe.energy_agent)
+        graphs = _graph_stats(captured)
         result[sampler] = {"eager_s": eager_s, "frozen_s": frozen_s,
                            "eager_poses_per_s": B / eager_s, "frozen_poses_per_s": B / frozen_s,
                            "eager_profile": eager_prof, "frozen_profile": frozen_prof,
@@ -1706,10 +1727,11 @@ def frozen_evaluation(dev, card, evaluation, ctx, agents):
                      repeat_num=K, num_steps=cfg.sampling_steps, T0=cfg.T0)
 
     eager_prof = device_profile(one_chunk, "one stage-2 chunk, eager")
-    score.freeze()
-    energy.freeze()
-    secs, launches, dispatches = eval_stages_2_3(cfg, score, energy, ctx["seg"], frozen_dir,
-                                                 chunks, "frozen")
+    with _traced() as captured:
+        score.freeze()
+        energy.freeze()
+        secs, launches, dispatches = eval_stages_2_3(cfg, score, energy, ctx["seg"], frozen_dir,
+                                                     chunks, "frozen")
     if dispatches != {"stage 2": chunks, "stage 3": chunks}:
         raise AssertionError(f"evaluation frozen: dispatches {dispatches}, expected {chunks} "
                              f"in each stage")
@@ -1734,7 +1756,7 @@ def frozen_evaluation(dev, card, evaluation, ctx, agents):
             raise AssertionError(f"evaluation frozen vs eager: {k} tables differ")
     eager_secs = evaluation["seconds"]
     instances = evaluation["instances"]
-    graphs = _graph_stats(score, energy)
+    graphs = _graph_stats(captured)
     print(f"frozen evaluation ({instances} instances in {chunks} chunks padded to "
           f"{cfg.batch_size}): stage 2 eager {eager_secs['stage 2']:.4f} s = "
           f"{instances / eager_secs['stage 2']:.2f} poses/s, frozen {secs['stage 2']:.4f} s = "
@@ -1752,7 +1774,8 @@ def frozen_evaluation(dev, card, evaluation, ctx, agents):
 def frozen_tracking(dev, card, nocs, agents, eager, eager_poses, eager_metrics):
     """Phase 12, tracking: ``main_tracking`` as a user calls it (both agents
     frozen) on phase 10's frames, against phase 10's eager run."""
-    result, poses, metrics = tracking_path(dev, card, nocs, agents, frozen_arm=True)
+    with _traced() as captured:
+        result, poses, metrics = tracking_path(dev, card, nocs, agents, frozen_arm=True)
     if len(poses) != len(eager_poses):
         raise AssertionError(f"tracking: {len(poses)} frozen frames, {len(eager_poses)} eager")
     how = _agreement("tracking pooled poses", {n: p for n, p in enumerate(poses)},
@@ -1762,7 +1785,7 @@ def frozen_tracking(dev, card, nocs, agents, eager, eager_poses, eager_metrics):
         if got["5d5cm_acc"] != m["5d5cm_acc"] or _scaled_diff(got["mean_error"],
                                                                m["mean_error"]) > FROZEN_TOL:
             raise AssertionError(f"tracking metrics of {name}: frozen {got}, eager {m}")
-    graphs = _graph_stats(*agents)
+    graphs = _graph_stats(captured)
     print(f"frozen tracking: {result['frames_per_s']:.3f} frames/s against "
           f"{eager['frames_per_s']:.3f} eager (capture included); a frame's chain median "
           f"{result['frame_s_median']:.4f} s against {eager['frame_s_median']:.4f} s; one frame "
@@ -1841,7 +1864,8 @@ def bf16_serving(dev, card, pts: np.ndarray, f32_arms: dict):
         torch.cuda.empty_cache()
         reserved0 = torch.cuda.memory_reserved()
         t0 = time.perf_counter()
-        pipe.freeze().warmup()
+        with _traced() as captured:
+            pipe.freeze().warmup()
         freeze_s = time.perf_counter() - t0
         torch.cuda.empty_cache()
         held_mb = (torch.cuda.memory_reserved() - reserved0) / 2 ** 20
@@ -1853,7 +1877,7 @@ def bf16_serving(dev, card, pts: np.ndarray, f32_arms: dict):
         if not all(np.array_equal(got[k], eager[k]) for k in eager):
             raise AssertionError(f"serving bf16 {sampler}: frozen differs from eager")
         frozen_prof = device_profile(request, f"serving bf16 {sampler}, frozen request")
-        graphs = _graph_stats(pipe.score_agent, pipe.energy_agent)
+        graphs = _graph_stats(captured)
 
         ref, _, _ = drive(pipes["float32"].freeze().warmup(), pts, f"f32 {sampler} frozen")
         gaps = _bf16_gaps(pipes, pts, sampler)
@@ -2006,10 +2030,11 @@ def bf16_evaluation_tracking(dev, card, evaluation, frozen_eval, ctx, nocs):
     score, energy = eval_agents(cfg, dev)
     chunks, instances = evaluation["chunks"], evaluation["instances"]
     out_dir = str(ctx["root"] / "single" / "bf16_frozen")
-    score.freeze()
-    energy.freeze()
-    secs, launches, dispatches = eval_stages_2_3(cfg, score, energy, ctx["seg"], out_dir, chunks,
-                                                 "bf16 frozen")
+    with _traced() as captured:
+        score.freeze()
+        energy.freeze()
+        secs, launches, dispatches = eval_stages_2_3(cfg, score, energy, ctx["seg"], out_dir,
+                                                     chunks, "bf16 frozen")
     if dispatches != {"stage 2": chunks, "stage 3": chunks}:
         raise AssertionError(f"evaluation bf16: dispatches {dispatches}, expected {chunks} each")
     chunk_prof = device_profile(
@@ -2041,7 +2066,7 @@ def bf16_evaluation_tracking(dev, card, evaluation, frozen_eval, ctx, nocs):
     return {"evaluation": {"seconds": secs, "stage2_poses_per_s": instances / secs["stage 2"],
                            "launches": launches, "dispatches": dispatches,
                            "frozen_chunk_profile": chunk_prof,
-                           "graphs": _graph_stats(score, energy)},
+                           "graphs": _graph_stats(captured)},
             "tracking": tracking}
 
 
@@ -2968,7 +2993,8 @@ def frozen_sampler_serving(dev, card, pts: np.ndarray, eager14: dict):
             torch.cuda.empty_cache()
             reserved0 = torch.cuda.memory_reserved()
             t0 = time.perf_counter()
-            pipe.freeze().warmup()
+            with _traced() as captured:
+                pipe.freeze().warmup()
             freeze_s = time.perf_counter() - t0
             torch.cuda.empty_cache()
             held_mb = (torch.cuda.memory_reserved() - reserved0) / 2 ** 20
@@ -2981,7 +3007,7 @@ def frozen_sampler_serving(dev, card, pts: np.ndarray, eager14: dict):
             prof = device_profile(
                 lambda: pipe.predict(pts, generator=torch.Generator(device=dev).manual_seed(1)),
                 f"serving {arm}, frozen request", cpu=False)
-            graphs = _graph_stats(pipe.score_agent, pipe.energy_agent)
+            graphs = _graph_stats(captured)
             phase14_s = eager14[name]["seconds"] if dtype == "float32" else None
             result[f"{name}_{dtype}"] = {
                 "steps": pipe.cfg.sampling_steps, "eager_s": eager_s, "frozen_s": frozen_s,

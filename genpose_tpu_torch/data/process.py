@@ -21,6 +21,7 @@ import torch
 from genpose_tpu_torch.config import PtsAugConfig
 from genpose_tpu_torch.data.augment import data_augment
 from genpose_tpu_torch.ops.pose import matrix_to_quat_wxyz, matrix_to_rot6d
+from genpose_tpu_torch.utils import trace
 from genpose_tpu_torch.utils.device import resolve_device
 
 
@@ -59,29 +60,30 @@ def process_batch(batch_sample: Mapping, pose_mode: str = "rot_matrix",
     Augments iff ``pts_aug_params`` is given, with draws from ``generator``
     or the given ``draws`` (``data/augment.py::augment_draws``)."""
     dev = resolve_device(device)
-    batch = {k: torch.as_tensor(np.asarray(v)).to(dev) for k, v in batch_sample.items()
-             if k != "path"}
-    if mini_batch_size is not None:
-        batch = {k: v[:mini_batch_size] for k, v in batch.items()}
-    PC, gt_R, gt_t = batch["pcl_in"], batch["rotation"], batch["translation"]
-    if pts_aug_params is not None:
-        PC, gt_R, gt_t, _ = data_augment(
-            pts_aug_params, PC, gt_R, gt_t, batch["fsnet_scale"], batch["mean_shape"],
-            batch["sym_info"], batch["aug_bb"], batch["aug_rt_t"], batch["aug_rt_R"],
-            batch["model_point"], batch["nocs_scale"], batch["cat_id"],
-            generator=generator, draws=draws)
+    with trace.span("data.process", device=dev):
+        batch = {k: torch.as_tensor(np.asarray(v)).to(dev) for k, v in batch_sample.items()
+                 if k != "path"}
+        if mini_batch_size is not None:
+            batch = {k: v[:mini_batch_size] for k, v in batch.items()}
+        PC, gt_R, gt_t = batch["pcl_in"], batch["rotation"], batch["translation"]
+        if pts_aug_params is not None:
+            PC, gt_R, gt_t, _ = data_augment(
+                pts_aug_params, PC, gt_R, gt_t, batch["fsnet_scale"], batch["mean_shape"],
+                batch["sym_info"], batch["aug_bb"], batch["aug_rt_t"], batch["aug_rt_R"],
+                batch["model_point"], batch["nocs_scale"], batch["cat_id"],
+                generator=generator, draws=draws)
 
-    gt_pose = torch.cat([encode_rotation(gt_R, pose_mode), gt_t], dim=-1)
-    center = torch.mean(PC[:, :, :3], dim=1)
-    zero_pts = torch.cat([PC[:, :, :3] - center[:, None, :], PC[:, :, 3:]], dim=-1)
-    zero_pose = torch.cat([gt_pose[:, :-3], gt_pose[:, -3:] - center], dim=-1)
-    return {
-        "pts": PC,
-        "pts_color": PC,
-        "id": batch["cat_id"].reshape(-1).to(torch.int32),
-        "handle_visibility": batch["handle_visibility"].reshape(-1).to(torch.int32),
-        "gt_pose": gt_pose,
-        "zero_mean_pts": zero_pts,
-        "zero_mean_gt_pose": zero_pose,
-        "pts_center": center,
-    }
+        gt_pose = torch.cat([encode_rotation(gt_R, pose_mode), gt_t], dim=-1)
+        center = torch.mean(PC[:, :, :3], dim=1)
+        zero_pts = torch.cat([PC[:, :, :3] - center[:, None, :], PC[:, :, 3:]], dim=-1)
+        zero_pose = torch.cat([gt_pose[:, :-3], gt_pose[:, -3:] - center], dim=-1)
+        return {
+            "pts": PC,
+            "pts_color": PC,
+            "id": batch["cat_id"].reshape(-1).to(torch.int32),
+            "handle_visibility": batch["handle_visibility"].reshape(-1).to(torch.int32),
+            "gt_pose": gt_pose,
+            "zero_mean_pts": zero_pts,
+            "zero_mean_gt_pose": zero_pose,
+            "pts_center": center,
+        }

@@ -56,6 +56,7 @@ from genpose_tpu_torch.parallel import group as parallel
 from genpose_tpu_torch.training.agent import PoseAgent
 from genpose_tpu_torch.training.checkpoints import load_checkpoint
 from genpose_tpu_torch.training.ranking import sort_poses_by_energy
+from genpose_tpu_torch.utils import trace
 from genpose_tpu_torch.utils.device import resolve_device
 
 
@@ -97,8 +98,9 @@ class InferencePipeline:
             batch, generator=generator, repeat_num=self.K, sampler=self.sampler,
             num_steps=self.cfg.sampling_steps, T0=self.cfg.T0, geometry=geom)
         energy = self.energy_agent.get_energy(batch, pred, T=1e-5, geometry=geom)
-        sorted_pose, sorted_energy = sort_poses_by_energy(pred, energy)
-        pred_q, avg = self.score_agent.aggregate_hypotheses(sorted_pose[:, :self.keep])
+        with trace.span("rank_pool"):
+            sorted_pose, sorted_energy = sort_poses_by_energy(pred, energy)
+            pred_q, avg = self.score_agent.aggregate_hypotheses(sorted_pose[:, :self.keep])
         return {
             "pred_pose": avg,                  # [n, 7] wxyz + t (pooled)
             "best_pose": pred_q[:, 0],         # [n, 7] best-energy
@@ -151,15 +153,19 @@ class InferencePipeline:
             }
         generator = generator if generator is not None else self._generator(0)
         outs = []
-        for lo in range(0, n, self.bs):
-            chunk = pts[lo:lo + self.bs]
-            real = chunk.shape[0]
-            if real < self.bs:
-                chunk = np.concatenate(
-                    [chunk, np.repeat(chunk[-1:], self.bs - real, axis=0)], axis=0)
-            local = parallel.shard_batch(self.group, torch.from_numpy(chunk).to(self.device))
-            with parallel.sharded(self.group):
-                out = self._run(local, generator)
-            out = parallel.all_gather_rows(self.group, out)
-            outs.append({k: v[:real].cpu().numpy() for k, v in out.items()})
+        with trace.span("serve.request", device=self.device, rows=n):
+            for lo in range(0, n, self.bs):
+                chunk = pts[lo:lo + self.bs]
+                real = chunk.shape[0]
+                if real < self.bs:
+                    chunk = np.concatenate(
+                        [chunk, np.repeat(chunk[-1:], self.bs - real, axis=0)], axis=0)
+                with trace.span("serve.copy_in"):
+                    local = parallel.shard_batch(self.group,
+                                                 torch.from_numpy(chunk).to(self.device))
+                with parallel.sharded(self.group):
+                    out = self._run(local, generator)
+                out = parallel.all_gather_rows(self.group, out)
+                with trace.span("serve.copy_out"):
+                    outs.append({k: v[:real].cpu().numpy() for k, v in out.items()})
         return {k: np.concatenate([o[k] for o in outs], axis=0) for k in outs[0]}

@@ -84,10 +84,16 @@ from genpose_tpu_torch.parallel import group as parallel
 from genpose_tpu_torch.training.frozen import FrozenPrograms
 from genpose_tpu_torch.training.ranking import ranking_loss, sort_results
 from genpose_tpu_torch.training.state import EMA, TrainState, create_train_state
+from genpose_tpu_torch.utils import trace
 from genpose_tpu_torch.utils.weights import from_jax_variables, shadow_from_jax
 
 Noise = Tuple[torch.Tensor, torch.Tensor]
 SAMPLERS = ("ode", "ode_adaptive", "pc", "edm")
+
+
+def _own_device(agent: "PoseAgent", *args, **kwargs) -> torch.device:
+    """The device of a method's span: the agent's."""
+    return agent.device
 
 
 class PoseAgent:
@@ -163,6 +169,7 @@ class PoseAgent:
             for k, p in params.items():
                 p.data = live[k]
 
+    @trace.spanned("geometry")
     def pts_geometry(self, pts: torch.Tensor):
         """FPS + ball query + grouped coordinates of a cloud, for every SA
         stage, in the dtypes the encoder computes its inline geometry in
@@ -319,6 +326,7 @@ class PoseAgent:
     # score training
     # ------------------------------------------------------------------
 
+    @trace.spanned("train.step", device=_own_device)
     def train_step(self, batch, generator: Optional[torch.Generator] = None,
                    noise: Optional[Noise] = None) -> Dict[str, torch.Tensor]:
         """One optimization step of denoising score matching.  ``noise``:
@@ -330,6 +338,7 @@ class PoseAgent:
 
         return {"gf": self._optimize(loss_fn)}
 
+    @trace.spanned("train.ema_loss")
     @torch.no_grad()
     def ema_loss(self, batch, generator: Optional[torch.Generator] = None,
                  noise: Optional[Noise] = None) -> torch.Tensor:
@@ -423,6 +432,7 @@ class PoseAgent:
     # sampling (K hypotheses; ref posenet_agent.py:416-468)
     # ------------------------------------------------------------------
 
+    @trace.spanned("sample", device=_own_device)
     @torch.no_grad()
     def sample(self, batch, generator: Optional[torch.Generator] = None, repeat_num: int = 1,
                sampler: Optional[str] = None, num_steps: Optional[int] = None,
@@ -508,6 +518,7 @@ class PoseAgent:
     # energies of candidate poses (ref posenet_agent.py:471-527)
     # ------------------------------------------------------------------
 
+    @trace.spanned("energy", device=_own_device)
     @torch.no_grad()
     def get_energy(self, batch, pose_samples: torch.Tensor, T: Optional[float] = None,
                    geometry=None, generator: Optional[torch.Generator] = None,

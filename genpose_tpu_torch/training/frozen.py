@@ -35,7 +35,9 @@ memory pool) and replayed after:
 - energies: the encoder, the head's projections and the energy head.
 
 Outside the graphs, eagerly: the PointNet++ geometry (the FPS and ball-query
-wrappers count their launches per Python call); every draw of the sampler,
+wrappers count their launches per Python call in their ``launches``, which
+``utils/trace.py::snapshot`` reads with ``dispatches`` and
+``frozen.captures``); every draw of the sampler,
 made from the caller's generator by the helpers the eager samplers call
 (``prior_rows``, ``pc_start``, ``pc_draws``, ``edm_draws``), so that a frozen
 call consumes the generator as an eager call does, and copied into the
@@ -60,7 +62,6 @@ taken at freeze time, so loading weights, a training step,
 from __future__ import annotations
 
 import copy
-import time
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -80,6 +81,7 @@ from genpose_tpu_torch.diffusion.samplers import (
 from genpose_tpu_torch.models.layers import cast_weights_
 from genpose_tpu_torch.ops.pose import get_pose_dim
 from genpose_tpu_torch.parallel import group as parallel
+from genpose_tpu_torch.utils import trace
 
 # Calls served by frozen programs since import.  A run that resets it and
 # reads it afterwards shows whether a path went through them.
@@ -160,22 +162,20 @@ class _Program:
     def __init__(self, static, fns: List[Callable], drive: Callable):
         self.static, self.drive = static, drive
         self.segments = [_Segment(fn) for fn in fns]
-        self.warmup_s = self.capture_s = 0.0
 
     def capture(self, pool, stream) -> None:
         """Warm every segment up once on ``stream`` (libraries initialised,
-        workspaces allocated), then capture each in the pool."""
-        t0 = time.perf_counter()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            for seg in self.segments:
-                seg.fn()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
+        workspaces allocated; the span ``frozen.warmup``), then capture each
+        in the pool."""
+        with trace.span("frozen.warmup"):
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                for seg in self.segments:
+                    seg.fn()
+            torch.cuda.synchronize()
         for seg in self.segments:
             seg.capture(pool, stream)
         torch.cuda.synchronize()
-        self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
 
     def __call__(self):
         return self.drive(*self.segments)
@@ -212,11 +212,16 @@ class FrozenPrograms:
             static = _clone(inputs)
             prog = self.programs[key] = _Program(static, *build(*static))
             if self.pool is not None and capture:
-                prog.capture(self.pool, self.stream)
+                trace.count("frozen.captures")
+                # host time only: no event may be recorded inside a capture
+                with trace.span("frozen.capture", mode=self.agent.mode, kind=key[0],
+                                rows=key[1], K=key[2], graphs=len(prog.segments)):
+                    prog.capture(self.pool, self.stream)
         else:
             _copy_into(prog.static, inputs)
         dispatches += 1
-        return _clone(prog())
+        with trace.span("frozen.replay", kind=key[0]):
+            return _clone(prog())
 
     def sample(self, batch, generator: Optional[torch.Generator], repeat_num: int,
                sampler: str, num_steps: int, T0: Optional[float],

@@ -38,6 +38,8 @@ from typing import Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from genpose_tpu_torch.utils import trace
+
 f32 = np.float32
 
 
@@ -83,6 +85,11 @@ class EMA:
         self.num_updates = n
 
 
+def _params_device(state, params: Mapping[str, torch.Tensor], grads) -> torch.device:
+    """The device of an update's span: the parameters'."""
+    return next(iter(params.values())).device
+
+
 class TrainState:
     """Step count, optimizer state and EMA of one agent's parameters.
 
@@ -108,6 +115,7 @@ class TrainState:
         return ({"mu": zeros(), "nu": zeros()} if self.optimizer == "Adam"
                 else {"trace": zeros()})
 
+    @trace.spanned("optimizer", device=_params_device)
     @torch.no_grad()
     def apply_gradients(self, params: Mapping[str, torch.Tensor],
                         grads: Mapping[str, torch.Tensor]) -> None:

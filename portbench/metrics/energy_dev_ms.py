@@ -1,0 +1,9 @@
+"""Mean device ms of the program's ``energy`` span (``PoseAgent.get_energy``:
+the frozen energy program) per ``serve.request``, in the program slice."""
+
+from harness.program import mean, program_of
+
+
+def read(run):
+    prog = program_of(run)
+    return None if prog is None else mean(prog.root_sum_ms("slice", "serve.request", "energy"))
