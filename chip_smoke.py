@@ -218,6 +218,18 @@ non-zero and prints no result line):
    (pooled, best-energy, untrained) and the request's seconds; FPS 3 +
    ball query 3 per score step, evaluation, energy iteration and request.
    It runs after phase 8, with the other training phases.
+22. the fused score head (``csrc/score_head.cu`` through
+   ``ops/score_head_cuda.py``), run after phase 4: ``-Xptxas -v``'s
+   registers and spills of its two kernels; at the evaluation shape (256
+   clouds x K=50 = 12,800 rows, t = 0.55) against the plain arithmetic
+   (largest gap over the largest output, SCORE_HEAD_TOL), two calls bit for
+   bit; ms per evaluation by CUDA events over SCORE_HEAD_CALLS back-to-back
+   calls of the kernel pair, of ``score_from`` (sigma(t) included) and of
+   the plain arithmetic, the kernels' device ms by ``torch.profiler``, all
+   beside the float32 bound; then one frozen Heun-500 bs=256 request of the
+   benchmark's ``genpose_light.eval_b256`` cell (its harness, weights and
+   clouds from SCORE_HEAD_SEED) and its ``pose_gap`` against
+   ``portbench/reference``, under the cell's limit.
 
 Checkpoints and metrics of phase 7, the trees and results of phases 9-12,
 the converted checkpoints of phase 14, the tree and results of phase 15 and
@@ -225,7 +237,7 @@ the trained pair of phase 21 go under ``build/chip_smoke/`` in the
 checkout.  The last lines are the training numbers, the evaluation and
 tracking numbers, the frozen arms, the bfloat16 arms, the checkpoint and
 sampler numbers, the training CLI's numbers, phase 16's, 17's, 18's, 19's,
-20's and 21's numbers, the card line, one JSON line describing each
+20's, 21's and 22's numbers, the card line, one JSON line describing each
 kernel, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -258,6 +270,9 @@ TRAIN_UPDATE_RTOL = 0.2  # phase 8: a parameter's update, relative to its norm
 OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"  # checkpoints, logs
 EVAL_SCENES = 24  # Real/test scenes of the synthetic tree (phases 9-10): the only cut
 EVAL_T0, TRACK_T0 = 0.55, 0.15  # scripts/eval_single.sh, scripts/eval_tracking.sh
+SCORE_HEAD_CALLS = 200  # phase 22: back-to-back score evaluations a timing
+SCORE_HEAD_TOL = 1e-5  # phase 22: kernel against plain, over the largest |output|
+SCORE_HEAD_SEED = 3000000037  # phase 22: the eval cell's weights and request
 
 
 @contextlib.contextmanager
@@ -3819,6 +3834,137 @@ def convergence(dev, card):
     return out
 
 
+def score_head_ptxas():
+    """Registers and spill bytes of ``csrc/score_head.cu``'s kernels, from
+    one ``nvcc -Xptxas -v`` compile of the file with the build's flags."""
+    import re
+    import subprocess
+    import tempfile
+
+    from genpose_tpu_torch.ops import _build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+               str(_build.CSRC_DIR / "score_head.cu"), "-o", str(Path(tmp) / "score_head.o")]
+        log = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                             check=True).stdout
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            name = ("score_head_prep" if "score_head_prep" in fn else
+                    f"score_head_kernel<{3 if 'ILi3E' in fn else 0}>" if "score_head_kernel" in fn
+                    else None)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(name, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def eval_cell_pose_gap(dev, seed: int):
+    """One frozen request of the benchmark's ``genpose_light.eval_b256``
+    cell through its own harness (weights, clouds and draws from ``seed``),
+    checked against ``portbench/reference``: (numbers, the cell's limits)."""
+    root = Path(__file__).resolve().parent / "portbench"
+    sys.path.insert(0, str(root))
+    try:
+        from harness import common, serve
+
+        cell, config, traffic = common.cell("genpose_light.eval_b256")
+        d = serve.Driver(config, {**traffic, "check_units": 1}, dev, seed, common.Spans(dev))
+        d.setup()
+        d.start()
+        d.unit(0)
+        d.spans.unwrap()
+        d.close(1)
+        torch.cuda.empty_cache()
+        return d.check(), cell["limits"]
+    finally:
+        sys.path.remove(str(root))
+
+
+def score_head_path(dev, card):
+    """Phase 22: the fused score head at the evaluation shape."""
+    from genpose_tpu_torch.diffusion.sde import init_sde
+    from genpose_tpu_torch.models.scorenet import PoseScoreNet
+    from genpose_tpu_torch.ops import score_head_cuda as sh
+    from genpose_tpu_torch.utils.weights import perturb_
+
+    ptxas = score_head_ptxas()
+    rows = 256 * K
+    net = perturb_(PoseScoreNet(init_sde("ve").marginal_prob), seed=22, scale=0.05)
+    net = net.to(dev).eval().requires_grad_(False)
+    g = torch.Generator(device=dev).manual_seed(22)
+    fp = net.precompute(torch.randn(256, 1024, generator=g, device=dev).relu())
+    fp = fp.repeat_interleave(K, dim=0)
+    x = torch.randn(rows, 9, generator=g, device=dev)
+    t = torch.full((1, 1), EVAL_T0, device=dev)
+    _, std = net.marginal_prob_fn(None, t)
+    std = std.reshape(1, 1)
+    with torch.no_grad():
+        got = sh.score_head(net.trunk, fp, x, t, std)
+        again = sh.score_head(net.trunk, fp, x, t, std)
+        want = sh.score_head_ref(net.trunk, fp, x, t, std)
+    torch.cuda.synchronize()
+    gap = float((got - want).abs().max() / want.abs().max())
+    if gap > SCORE_HEAD_TOL or not torch.equal(got, again):
+        raise AssertionError(f"score head kernel: gap {gap} (limit {SCORE_HEAD_TOL}), "
+                             f"two calls equal {torch.equal(got, again)}")
+
+    def events_ms(fn):
+        with torch.no_grad():
+            fn()
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(SCORE_HEAD_CALLS):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+        return start.elapsed_time(end) / SCORE_HEAD_CALLS
+
+    def kernels():
+        with torch.no_grad():
+            sh.score_head(net.trunk, fp, x, t, std)
+
+    kernel_ms = events_ms(kernels)
+    score_from_ms = events_ms(lambda: net.score_from(fp, x, t))
+    plain_ms = events_ms(lambda: sh.score_head_ref(net.trunk, fp, x, t, std))
+    head_dev_ms = device_ms(kernels, 50, "score_head_kernel")
+    prep_dev_ms = device_ms(kernels, 50, "score_head_prep")
+    T, H, O = net.trunk.tails.num_tails, net.trunk.tails.hidden, net.trunk.tails.out_dim
+    NT = T * H
+    macs = rows * (9 * 256 + 256 * 256 + 256 * NT + NT * O) + 128 * 128 + 128 * NT
+    weights = 128 * 128 + 128 + 256 * 9 + 256 + 256 * 256 + 256 + 128 * NT + 256 * NT + NT \
+        + NT * O + T * O + 64
+    n_bytes = 4 * (rows * NT + rows * 9 + rows * T * O + weights)
+    bnd, by = bound_ms(n_bytes, 2 * macs)
+    shape = sh.launch_shape(rows, torch.cuda.get_device_properties(dev).multi_processor_count,
+                            NT, O)
+    numbers, limits = eval_cell_pose_gap(dev, SCORE_HEAD_SEED)
+    if not numbers.get("pose_gap", float("inf")) <= limits["pose_gap"]:
+        raise AssertionError(f"eval cell request: {numbers} against {limits}")
+    out = {"rows": rows, "gap": gap, "kernel_ms": kernel_ms, "score_from_ms": score_from_ms,
+           "plain_ms": plain_ms, "head_device_ms": head_dev_ms, "prep_device_ms": prep_dev_ms,
+           "bound_ms": bnd, "bound_by": by, "ops": 2 * macs, "bytes": n_bytes,
+           "launch": dict(zip(("warps", "rows_per_block", "blocks", "smem_bytes"), shape)),
+           "ptxas": ptxas, "eval_cell": {"seed": SCORE_HEAD_SEED, **numbers, "limits": limits}}
+    print(f"score head (rows={rows}, t={EVAL_T0}): kernel gap {gap:.3e} <= {SCORE_HEAD_TOL}; "
+          f"kernel pair {kernel_ms:.4f} ms, score_from {score_from_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms by events; device head {_ms(head_dev_ms)}, prep "
+          f"{_ms(prep_dev_ms)}; bound {bnd:.4f} ms ({by}); launch {out['launch']}; ptxas "
+          f"{ptxas}; eval cell request pose_gap {numbers['pose_gap']:.3e} (limit "
+          f"{limits['pose_gap']}), energy_gap {numbers.get('energy_gap')}; {card}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3842,6 +3988,8 @@ def main() -> int:
     for row in fps_rows + bq_rows + fused_rows:
         print(json.dumps(row), flush=True)
     fused_launches, chain_times, fused_profiled = fused_geometry_path(dev, card)
+    phase22 = score_head_path(dev, card)
+    torch.cuda.empty_cache()
 
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -4033,6 +4181,7 @@ def main() -> int:
     print(json.dumps({"benchmarking": phase19}), flush=True)
     print(json.dumps({"host_helper": phase20}), flush=True)
     print(json.dumps({"convergence": phase21}), flush=True)
+    print(json.dumps({"score_head": phase22}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -21,6 +21,15 @@ model does not wire it (the reference hardcodes it off, ``posenet.py:57``).
 float32.  The score divides by a 2-D ``std`` column, so it is float32 under
 any head dtype, as in JAX (a 0-dim float32 divisor would leave a bfloat16
 quotient bfloat16 in PyTorch).
+
+On a card, ``PoseScoreNet.score_from`` computes a whole evaluation in one
+hand-written kernel (``ops/score_head_cuda.py``) when its inputs show the
+float32 fused-tail head at a step-shared t without autograd
+(``fused_head_applies``): the samplers' evaluations.  Everything else
+(training's per-row t, the likelihood's gradients, bfloat16 heads, split
+or per-point tails, the CPU) runs the plain arithmetic.  The counters
+``score_head.fused`` and ``score_head.plain`` of ``utils/trace.py`` count
+the calls of each path.
 """
 
 from __future__ import annotations
@@ -39,7 +48,9 @@ from genpose_tpu_torch.models.layers import (
     PositionalEmbedding,
     SplitTail,
 )
+from genpose_tpu_torch.ops import score_head_cuda
 from genpose_tpu_torch.ops.pose import get_pose_dim
+from genpose_tpu_torch.utils import trace
 
 
 def _tail_specs(regression_head: str, pose_dim: int):
@@ -135,6 +146,22 @@ class PoseTrunk(_TailBank):
         return self._tails_from_proj(projs, t_feat, pose_feat)
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    return x.is_cuda
+
+
+def fused_head_applies(trunk: PoseTrunk, projs, sampled_pose: torch.Tensor,
+                       t: torch.Tensor) -> bool:
+    """Whether a score evaluation takes the fused kernel: a float32
+    ``FusedTails`` bank (not split or per-point tails), float32 CUDA inputs,
+    a step-shared t [1, 1] and no autograd graph to record."""
+    tails = getattr(trunk, "tails", None)
+    return (isinstance(tails, FusedTails) and tails.dtype == torch.float32
+            and _on_card(sampled_pose) and not torch.is_grad_enabled()
+            and tuple(t.shape) == (1, 1) and t.dtype == torch.float32
+            and sampled_pose.dtype == torch.float32 and projs.dtype == torch.float32)
+
+
 class PoseScoreNet(nn.Module):
     """The score head: the trunk's output over sigma(t) + 1e-7.
     ``per_point_feature`` as ``PoseTrunk``'s."""
@@ -153,6 +180,11 @@ class PoseScoreNet(nn.Module):
     def score_from(self, projs, sampled_pose, t, generator: Optional[torch.Generator] = None):
         _, std = self.marginal_prob_fn(None, t)
         std = torch.reshape(std, (-1, 1))
+        if fused_head_applies(self.trunk, projs, sampled_pose, t):
+            trace.count("score_head.fused")
+            return score_head_cuda.score_head(self.trunk, projs.contiguous(),
+                                              sampled_pose.contiguous(), t, std)
+        trace.count("score_head.plain")
         return self.trunk.f_theta_from(projs, sampled_pose, t, generator) / (std + 1e-7)
 
 

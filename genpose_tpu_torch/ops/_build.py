@@ -4,7 +4,8 @@ Every ``genpose_tpu_torch/csrc/*.cu`` is compiled by its own ``nvcc``
 process, all started together, and linked into one shared library with a
 plain C interface under ``build/genpose_tpu_torch/``.  The library is loaded
 with ``ctypes``; the wrappers (``ops/fps_cuda.py``, ``ops/ball_query_cuda.py``,
-``ops/fps_bq_fused_cuda.py``) pass raw device pointers and the current CUDA stream as ``c_void_p``.
+``ops/fps_bq_fused_cuda.py``, ``ops/score_head_cuda.py``) pass raw device
+pointers and the current CUDA stream as ``c_void_p``.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper), ``-O3``, and
 ``-fmad=false``: nvcc otherwise contracts ``a*b + c`` into one FMA, which
@@ -109,6 +110,10 @@ def library() -> ctypes.CDLL:
     lib.gp_ball_query.restype = i
     lib.gp_fps_bq_fused.argtypes = [p, p, p, i, i, i, i, p, p, p]
     lib.gp_fps_bq_fused.restype = i
+    lib.gp_score_head.argtypes = [p] * 18 + [i] * 6 + [p]
+    lib.gp_score_head.restype = i
+    lib.gp_score_head_shape.argtypes = [i, i, i, i, p]
+    lib.gp_score_head_shape.restype = i
     lib.gp_error_string.argtypes = [i]
     lib.gp_error_string.restype = ctypes.c_char_p
     return lib

@@ -162,20 +162,24 @@ class _Program:
     def __init__(self, static, fns: List[Callable], drive: Callable):
         self.static, self.drive = static, drive
         self.segments = [_Segment(fn) for fn in fns]
+        self.fused_evals = 0
 
     def capture(self, pool, stream) -> None:
         """Warm every segment up once on ``stream`` (libraries initialised,
         workspaces allocated; the span ``frozen.warmup``), then capture each
-        in the pool."""
+        in the pool.  ``fused_evals``: the score evaluations the captured
+        graphs run through the fused head kernel, i.e. one replay's."""
         with trace.span("frozen.warmup"):
             stream.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(stream):
                 for seg in self.segments:
                     seg.fn()
             torch.cuda.synchronize()
+        before = trace.snapshot()["score_head.fused"]
         for seg in self.segments:
             seg.capture(pool, stream)
         torch.cuda.synchronize()
+        self.fused_evals = trace.snapshot()["score_head.fused"] - before
 
     def __call__(self):
         return self.drive(*self.segments)
@@ -215,8 +219,10 @@ class FrozenPrograms:
                 trace.count("frozen.captures")
                 # host time only: no event may be recorded inside a capture
                 with trace.span("frozen.capture", mode=self.agent.mode, kind=key[0],
-                                rows=key[1], K=key[2], graphs=len(prog.segments)):
+                                rows=key[1], K=key[2], graphs=len(prog.segments)) as sp:
                     prog.capture(self.pool, self.stream)
+                    if sp is not None:
+                        sp.attrs["fused_evals"] = prog.fused_evals
         else:
             _copy_into(prog.static, inputs)
         dispatches += 1

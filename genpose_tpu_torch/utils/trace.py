@@ -30,7 +30,9 @@ step loop or per-kernel code.
 
 Counters count whether tracing is on or off.  ``count(name)`` keeps the
 counters of this module (``frozen.captures``: programs captured into CUDA
-graphs); ``snapshot()`` adds, as they stand, the module counters the port
+graphs; ``score_head.fused`` / ``score_head.plain``: ``PoseScoreNet.score_from``
+calls by path, eager or at capture, so a graph's replays add nothing);
+``snapshot()`` adds, as they stand, the module counters the port
 kept before: ``training/frozen.py::dispatches`` and the ``launches`` of
 ``ops/{fps,ball_query,fps_bq_fused}_cuda.py``.
 
@@ -64,7 +66,7 @@ _clock: Tuple[int, int] = (0, 0)
 _records: List["_Span"] = []
 _ids = itertools.count(1)
 _local = threading.local()
-_counts: Dict[str, int] = {"frozen.captures": 0}
+_counts: Dict[str, int] = {"frozen.captures": 0, "score_head.fused": 0, "score_head.plain": 0}
 
 
 class _Null:
