@@ -235,8 +235,9 @@ def get_data_loaders_from_cfg(cfg, data_type=("train", "val", "test"),
     ``mini_bs`` batches.  A train loader drops its last ragged batch when
     the split holds at least one full batch.  ``shard=(rank, world)``: the
     train loader yields that rank's rows of each global batch."""
-    from genpose_tpu_torch.data.nocs import NOCSDataset
+    from genpose_tpu_torch.data.nocs import NOCSDataset, refuse_rgb_encoder
 
+    refuse_rgb_encoder(cfg.pts_encoder)
     loaders = {}
     rng = np.random.default_rng(cfg.seed)
 

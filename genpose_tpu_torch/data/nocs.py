@@ -140,6 +140,16 @@ def _load_pickle(path: str):
         return pickle.load(f)
 
 
+def refuse_rgb_encoder(pts_encoder: str) -> None:
+    """Raise for an encoder whose input needs the object's RGB crop, which
+    this loader does not cut (GenPose++'s ``dinov2_pointnet2``)."""
+    if pts_encoder == "dinov2_pointnet2":
+        raise NotImplementedError(
+            "the NOCS loader cuts no RGB crops and gives the points no crop pixels, which "
+            "pts_encoder='dinov2_pointnet2' needs; feed process_batch raw batches that hold "
+            "'rgb' (uint8 [bs, 224, 224, 3]) and 'pix' ([bs, N, 2])")
+
+
 class NOCSDataset:
     """Map-style dataset over NOCS image quads (ref ``NOCSDataSet``).
 

@@ -9,6 +9,11 @@ For ``quat_wxyz`` the reference permutes pytorch3d's (w, x, y, z) output by
 ``[3, 0, 1, 2]`` (``datasets_genpose.py:681``), a latent bug in a path the
 released configs do not use; both quaternion modes are encoded correctly
 here, as in the JAX package.
+
+A raw batch with RGB crops (``rgb``, uint8 [bs, S, S, 3], and ``pix``, each
+point's crop pixel [bs, N, 2], for ``pts_encoder="dinov2_pointnet2"``) has
+them copied to the device as they are; the 3D augmentation moves the points
+and leaves their pixels.
 """
 
 from __future__ import annotations
@@ -86,4 +91,5 @@ def process_batch(batch_sample: Mapping, pose_mode: str = "rot_matrix",
             "zero_mean_pts": zero_pts,
             "zero_mean_gt_pose": zero_pose,
             "pts_center": center,
+            **{k: batch[k] for k in ("rgb", "pix") if k in batch},
         }

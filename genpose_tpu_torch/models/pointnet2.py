@@ -272,18 +272,21 @@ class Pointnet2MSG(nn.Module):
 
 class Pointnet2ClsMSG(nn.Module):
     """MSG classification encoder over xyz -> 1024-d global feature
-    (ref ``pointnet2.py:166-211``; GenPose feeds no per-point features), in
-    the stage configuration ``config`` of ``CLS_MSG_CONFIGS``.  Stage k
-    computes in float32 where ``stage_is_f32(k, n_stages, f32_stages)``,
-    else in ``dtype``; ``geometry_dtype`` (None: the stage's dtype) sets the
-    dtype of every stage's grouped coordinates."""
+    (ref ``pointnet2.py:166-211``), in the stage configuration ``config`` of
+    ``CLS_MSG_CONFIGS``.  GenPose feeds no per-point features; with
+    ``in_features`` C > 0 (GenPose++'s lifted image features) stage 0 groups
+    [dxyz ; f_j] of 3 + C channels.  Stage k computes in float32 where
+    ``stage_is_f32(k, n_stages, f32_stages)``, else in ``dtype``;
+    ``geometry_dtype`` (None: the stage's dtype) sets the dtype of every
+    stage's grouped coordinates."""
 
     def __init__(self, config: str = "light", dtype: torch.dtype = torch.float32,
-                 geometry_dtype: Optional[torch.dtype] = None, f32_stages: int = 0):
+                 geometry_dtype: Optional[torch.dtype] = None, f32_stages: int = 0,
+                 in_features: int = 0):
         super().__init__()
         params = CLS_MSG_CONFIGS[config]
         self.n_stages = len(params["NPOINTS"])
-        c = 0
+        c = in_features
         for k in range(self.n_stages):
             mlps = params["MLPS"][k]
             sdt = torch.float32 if stage_is_f32(k, self.n_stages, f32_stages) else dtype
@@ -293,10 +296,12 @@ class Pointnet2ClsMSG(nn.Module):
                 geometry_dtype=geometry_dtype))
             c = sum(m[-1] for m in mlps)
 
-    def forward(self, pointcloud: torch.Tensor, geometry=None) -> torch.Tensor:
+    def forward(self, pointcloud: torch.Tensor, geometry=None,
+                features: Optional[torch.Tensor] = None) -> torch.Tensor:
         """pointcloud [B, N, 3] -> [B, 1024].  ``geometry``: an optional
-        precomputed :func:`cls_msg_geometry` list."""
-        xyz, features = pointcloud[..., :3], None
+        precomputed :func:`cls_msg_geometry` list; ``features``: the points'
+        input features [B, N, in_features] (None without them)."""
+        xyz = pointcloud[..., :3]
         for k in range(self.n_stages):
             xyz, features = getattr(self, f"sa_{k}")(
                 xyz, features, geometry=None if geometry is None else geometry[k])

@@ -3,8 +3,13 @@
 The encoder is ``pts_encoder``'s: PointNet (``pointnet``), PointNet++
 (``pointnet2``, in the stage configuration ``pointnet2_params``), or both
 with their features concatenated and fused by a Dense(1024) + ReLU
-(``pointnet_and_pointnet2``; ref ``posenet.py:71-91``).  The module exposes
-the methods the agent composes: ``encode_pts`` (cloud -> 1024-d feature),
+(``pointnet_and_pointnet2``; ref ``posenet.py:71-91``), or GenPose++'s
+``dinov2_pointnet2``: the frozen DINOv2 ViT-S/14 ``image_tower``
+(``models/vit.py``) over the object's RGB crop, whose patch features,
+lifted to the points, enter PointNet++ stage 0 as 384 per-point input
+channels (the port's only encoder with no JAX counterpart).  The module
+exposes the methods the agent composes: ``encode_pts`` (cloud, and the
+lifted features under ``dinov2_pointnet2`` -> 1024-d feature),
 ``precompute_head`` (loop-invariant tail projections of the feature),
 ``score_with``, ``energy_with`` and ``denoise_with`` (one head evaluation
 from those projections).  A score model under ``sde_mode="edm"`` has the
@@ -39,6 +44,7 @@ from genpose_tpu_torch.models.layers import Dense
 from genpose_tpu_torch.models.pointnet import PointNetfeat
 from genpose_tpu_torch.models.pointnet2 import Pointnet2ClsMSG
 from genpose_tpu_torch.models.scorenet import PoseDecoderNet, PoseScoreNet
+from genpose_tpu_torch.models.vit import WIDTH, ImageTower
 from genpose_tpu_torch.utils.device import resolve_device
 from genpose_tpu_torch.utils.weights import init_params_
 
@@ -49,7 +55,8 @@ class GFObjectPose(nn.Module):
     """Composite model (ref ``posenet.py:18-68``): the ``pts_encoder``
     encoder and a score, EDM decoder (``decoder_head``) or energy head.
     Module names follow the flax tree: ``encoder``, or ``encoder_pn``,
-    ``encoder_pn2`` and ``fusion_layer``; then ``head``."""
+    ``encoder_pn2`` and ``fusion_layer``; then ``head``.  Under
+    ``dinov2_pointnet2`` the frozen ``image_tower`` comes first."""
 
     def __init__(self, marginal_prob_fn: Callable, pose_mode: str = "rot_matrix",
                  regression_head: str = "Rx_Ry_and_T", posenet_mode: str = "score",
@@ -66,9 +73,10 @@ class GFObjectPose(nn.Module):
         self.dtype, self.geometry_dtype, self.f32_stages = dtype, geometry_dtype, f32_stages
         hdt = dtype if head_dtype is None else head_dtype
 
-        def pointnet2():
+        def pointnet2(in_features: int = 0):
             return Pointnet2ClsMSG(config=pointnet2_params, dtype=dtype,
-                                   geometry_dtype=geometry_dtype, f32_stages=f32_stages)
+                                   geometry_dtype=geometry_dtype, f32_stages=f32_stages,
+                                   in_features=in_features)
 
         if pts_encoder == "pointnet":
             self.encoder = PointNetfeat(in_dim=3, out_dim=1024, dtype=dtype)
@@ -78,6 +86,9 @@ class GFObjectPose(nn.Module):
             self.encoder_pn = PointNetfeat(in_dim=3, out_dim=1024, dtype=dtype)
             self.encoder_pn2 = pointnet2()
             self.fusion_layer = Dense(2048, 1024, dtype=dtype)
+        elif pts_encoder == "dinov2_pointnet2":
+            self.image_tower = ImageTower()
+            self.encoder = pointnet2(in_features=WIDTH)
         else:
             raise NotImplementedError(pts_encoder)
         if posenet_mode == "score" and decoder_head:
@@ -94,14 +105,22 @@ class GFObjectPose(nn.Module):
         else:
             raise NotImplementedError(posenet_mode)
 
-    def encode_pts(self, pts: torch.Tensor, geometry=None) -> torch.Tensor:
+    def encode_pts(self, pts: torch.Tensor, geometry=None,
+                   features: Optional[torch.Tensor] = None) -> torch.Tensor:
         """pts [bs, N, 3] -> pts_feat [bs, 1024] (ref ``posenet.py:71-91``).
         ``geometry``: an optional precomputed ``cls_msg_geometry`` list for
-        the PointNet++ stages (the plain PointNet encoder takes none)."""
+        the PointNet++ stages (the plain PointNet encoder takes none);
+        ``features``: the lifted image features [bs, N, 384] that
+        ``dinov2_pointnet2`` needs and no other encoder takes."""
+        if (features is not None) != (self.pts_encoder == "dinov2_pointnet2"):
+            raise ValueError(f"the {self.pts_encoder} encoder takes "
+                             f"{'lifted' if features is None else 'no'} image features")
         if self.pts_encoder == "pointnet":
             return self.encoder(pts)
         if self.pts_encoder == "pointnet2":
             return self.encoder(pts, geometry=geometry)
+        if self.pts_encoder == "dinov2_pointnet2":
+            return self.encoder(pts, geometry=geometry, features=features)
         feat = torch.cat([self.encoder_pn(pts), self.encoder_pn2(pts, geometry=geometry)], dim=-1)
         return F.relu(self.fusion_layer(feat))
 
@@ -130,10 +149,11 @@ def build_model(cfg: Config, posenet_mode: Optional[str] = None,
                 device="cuda") -> GFObjectPose:
     """A ``GFObjectPose`` for ``cfg`` on ``device``, in eval mode, with fresh
     weights drawn from ``cfg.seed``: zero tail outputs, as in the reference
-    and the JAX package.  A score model under ``sde_mode="edm"`` gets the
-    EDM decoder head.  Raises if CUDA is asked for but absent, or for a
-    value of ``pts_encoder``, ``pointnet2_params``, ``pose_mode`` or
-    ``regression_head`` that the JAX package does not take either."""
+    and the JAX package (the image tower's: ``ImageTower.reset_``).  A score
+    model under ``sde_mode="edm"`` gets the EDM decoder head.  Raises if
+    CUDA is asked for but absent, or for a value of ``pts_encoder``,
+    ``pointnet2_params``, ``pose_mode`` or ``regression_head`` that neither
+    package takes (``dinov2_pointnet2`` is the port's alone)."""
     dev = resolve_device(device)
     sde = init_sde(cfg.sde_mode)
     mode = posenet_mode or cfg.posenet_mode

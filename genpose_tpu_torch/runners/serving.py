@@ -6,7 +6,9 @@ K-hypothesis PF-ODE sampling with the score agent -> energies with the
 energy agent -> decoupled rot/trans ranking -> top-ratio quaternion pooling
 (``evaluation_single.py:356-489`` semantics).  Requests smaller than the
 batch size are padded with copies of their last row, larger ones are
-chunked.
+chunked.  Under ``dinov2_pointnet2`` the frozen image tower runs once a
+chunk, beside the geometry: the score agent's tower over the crops, its
+features lifted to the points and given to both encoders.
 
 Usage:
     pipe = InferencePipeline(cfg, score_ckpt=..., energy_ckpt=...)  # device="cuda"
@@ -18,6 +20,9 @@ Usage:
     out["pred_pose"]             # [n, 7]  wxyz quaternion + translation
     out["sorted_hypotheses"]     # [n, K, pose_dim], best-energy first
     out["energy"]                # [n, K, 2]
+    # under pts_encoder="dinov2_pointnet2" (GenPose++) a request also carries
+    # each object's RGB crop and each point's crop pixel:
+    #   pipe.predict(pts, rgb=crops, pix=pixels)  # uint8 [n, 224, 224, 3], [n, N, 2]
 
 The JAX pipeline samples with the score agent's EMA shadow and ranks with
 the energy agent's live params; load the same sets here.  The checkpoints
@@ -52,6 +57,7 @@ import numpy as np
 import torch
 
 from genpose_tpu_torch.config import Config
+from genpose_tpu_torch.models.vit import CROP
 from genpose_tpu_torch.parallel import group as parallel
 from genpose_tpu_torch.training.agent import PoseAgent
 from genpose_tpu_torch.training.checkpoints import load_checkpoint
@@ -76,6 +82,7 @@ class InferencePipeline:
         self.K = cfg.eval_repeat_num
         self.keep = max(1, int(cfg.ratio * self.K))
         self.sampler = cfg.sampler_mode[0] if cfg.sampler_mode else "ode"
+        self.takes_crops = cfg.pts_encoder == "dinov2_pointnet2"
         self.score_agent = PoseAgent(cfg, "score", device=self.device)
         self.energy_agent = PoseAgent(cfg, "energy", device=self.device)
         if score_ckpt:
@@ -84,7 +91,8 @@ class InferencePipeline:
             load_checkpoint(energy_ckpt, self.energy_agent, load_model_only=True)
 
     @torch.no_grad()
-    def _run(self, pts: torch.Tensor, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    def _run(self, pts: torch.Tensor, generator: torch.Generator,
+             crops: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         center = torch.mean(pts[:, :, :3], dim=1)
         batch = {
             "zero_mean_pts": torch.cat([pts[:, :, :3] - center[:, None, :], pts[:, :, 3:]],
@@ -94,6 +102,9 @@ class InferencePipeline:
         # the geometry depends only on the coordinates: computed once, shared
         # by the score and energy encoders
         geom = self.score_agent.pts_geometry(batch["zero_mean_pts"])
+        # so do the image tower's lifted features (the tower is the same in both nets)
+        if crops is not None:
+            batch["features"] = self.score_agent.image_features(crops["rgb"], crops["pix"])
         pred = self.score_agent.sample(
             batch, generator=generator, repeat_num=self.K, sampler=self.sampler,
             num_steps=self.cfg.sampling_steps, T0=self.cfg.T0, geometry=geom)
@@ -126,22 +137,38 @@ class InferencePipeline:
         built, the libraries initialised and, after ``freeze()`` on a card,
         the CUDA graphs of the request's shape captured."""
         world = self.group.world if self.group is not None else 1
-        pts = torch.zeros((self.bs // world, self.cfg.num_points, 3), device=self.device)
+        rows = self.bs // world
+        pts = torch.zeros((rows, self.cfg.num_points, 3), device=self.device)
+        crops = None
+        if self.takes_crops:
+            crops = {"rgb": torch.zeros((rows, CROP, CROP, 3), dtype=torch.uint8,
+                                        device=self.device),
+                     "pix": torch.full((rows, self.cfg.num_points, 2), CROP / 2,
+                                       device=self.device)}
         with parallel.sharded(self.group):
-            self._run(pts, self._generator(0))
+            self._run(pts, self._generator(0), crops)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
 
-    def predict(self, pts, generator: Optional[torch.Generator] = None) -> Dict[str, np.ndarray]:
+    def predict(self, pts, generator: Optional[torch.Generator] = None, rgb=None,
+                pix=None) -> Dict[str, np.ndarray]:
         """pts [n, num_points, 3] camera-frame meters -> dict of numpy arrays.
 
         n may be anything: short batches are padded, long ones chunked.  The
         prior noise comes from ``generator`` (on the pipeline's device;
         default: a fresh one seeded 0), so a call is deterministic per
-        (pts, generator state).
+        (pts, generator state).  ``rgb`` (uint8 [n, 224, 224, 3], each
+        object's crop) and ``pix`` ([n, num_points, 2], each point's crop
+        pixel): what ``dinov2_pointnet2`` needs and no other encoder takes.
         """
         pts = np.asarray(pts, np.float32)
+        if (rgb is not None) != self.takes_crops or (rgb is None) != (pix is None):
+            raise ValueError(f"pts_encoder={self.cfg.pts_encoder!r} takes "
+                             f"{'rgb and pix' if self.takes_crops else 'no rgb or pix'}")
+        arrays = {"pts": pts}
+        if self.takes_crops:
+            arrays.update(rgb=np.asarray(rgb, np.uint8), pix=np.asarray(pix, np.float32))
         n = pts.shape[0]
         if n == 0:
             d = self.score_agent.pose_dim
@@ -155,16 +182,17 @@ class InferencePipeline:
         outs = []
         with trace.span("serve.request", device=self.device, rows=n):
             for lo in range(0, n, self.bs):
-                chunk = pts[lo:lo + self.bs]
-                real = chunk.shape[0]
+                chunk = {k: v[lo:lo + self.bs] for k, v in arrays.items()}
+                real = chunk["pts"].shape[0]
                 if real < self.bs:
-                    chunk = np.concatenate(
-                        [chunk, np.repeat(chunk[-1:], self.bs - real, axis=0)], axis=0)
+                    chunk = {k: np.concatenate([v, np.repeat(v[-1:], self.bs - real, axis=0)],
+                                               axis=0) for k, v in chunk.items()}
                 with trace.span("serve.copy_in"):
-                    local = parallel.shard_batch(self.group,
-                                                 torch.from_numpy(chunk).to(self.device))
+                    local = parallel.shard_batch(self.group, {
+                        k: torch.from_numpy(v).to(self.device) for k, v in chunk.items()})
+                pts_local = local.pop("pts")
                 with parallel.sharded(self.group):
-                    out = self._run(local, generator)
+                    out = self._run(pts_local, generator, local or None)
                 out = parallel.all_gather_rows(self.group, out)
                 with trace.span("serve.copy_out"):
                     outs.append({k: v[:real].cpu().numpy() for k, v in out.items()})

@@ -7,6 +7,16 @@ optimizer state and the EMA shadow.  It exposes:
 - ``pts_geometry`` (``agent.py:188-204``): the weight-independent PointNet++
   geometry of a cloud, shared by the score and energy encoders (None for
   the plain PointNet encoder);
+- ``image_features``: under ``pts_encoder="dinov2_pointnet2"`` (GenPose++,
+  no JAX counterpart) the frozen image tower over a batch's uint8 crops and
+  the lifting of its patch features to the points.  Every method that
+  encodes a batch's cloud reads them from the batch's ``features`` when it
+  has them, else computes them from its ``rgb`` and ``pix`` (as
+  ``data/process.py::process_batch`` leaves them) under ``no_grad``.
+  ``train_step`` and ``train_step_distill`` leave them in the batch, so the
+  EMA loss of the same batch and the teacher reuse them, and a serving
+  request puts them there once for both nets: the tower runs once a batch.  Its weights are buffers, outside the
+  optimizer, the EMA shadow and every gradient;
 - ``train_step`` (``agent.py:292-308``): one encoder pass in train mode
   (BatchNorm on batch statistics, running statistics updated) and
   ``repeat_num`` DSM draws through one head call, then the optimizer step
@@ -74,6 +84,7 @@ from genpose_tpu_torch.eval.metrics import pose_errors
 from genpose_tpu_torch.models.layers import FusedTails, SplitTail
 from genpose_tpu_torch.models.pointnet2 import cls_msg_geometry
 from genpose_tpu_torch.models.posenet import build_model
+from genpose_tpu_torch.models.vit import lift_features, normalize_crops
 from genpose_tpu_torch.ops.pose import (
     average_quaternion_batch,
     get_pose_dim,
@@ -185,14 +196,45 @@ class PoseAgent:
         return cls_msg_geometry(pts, self.cfg.pointnet2_params, dtype=m.dtype,
                                 f32_stages=m.f32_stages)
 
-    def _encode(self, pts: torch.Tensor, train: bool, geometry=None) -> torch.Tensor:
+    @torch.no_grad()
+    def image_features(self, rgb: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
+        """uint8 crops [bs, S, S, 3] and the points' crop pixels [bs, N, 2] ->
+        the image tower's patch features lifted to the points [bs, N, 384]
+        (``models/vit.py``)."""
+        tower = self.model.image_tower
+        with trace.span("image_tower", device=self.device, crops=rgb.shape[0]):
+            grid = tower(normalize_crops(rgb))
+        trace.count("image_tower.crops", rgb.shape[0])
+        with trace.span("feature_lift"):
+            feats = lift_features(grid, pix, tower.crop)
+        trace.count("feature_lift.points", pix.shape[0] * pix.shape[1])
+        return feats
+
+    def _features(self, batch, keep: bool = False):
+        """The lifted image features of ``batch`` (its ``features`` when it
+        has them) for an encoder that takes them, else None.  ``keep``: leave
+        them in the batch, so later calls on it reuse them."""
+        if self.cfg.pts_encoder != "dinov2_pointnet2":
+            return None
+        if "features" not in batch:
+            if "rgb" not in batch:
+                raise ValueError("the dinov2_pointnet2 encoder needs the batch's RGB crops "
+                                 "('rgb') and the points' crop pixels ('pix')")
+            features = self.image_features(batch["rgb"], batch["pix"])
+            if not keep:
+                return features
+            batch["features"] = features
+        return batch["features"]
+
+    def _encode(self, pts: torch.Tensor, train: bool, geometry=None,
+                features: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The cloud feature; ``train`` runs BatchNorm on batch statistics and
         updates its running statistics (one train-mode pass per step)."""
         if not train:
-            return self.model.encode_pts(pts, geometry=geometry)
+            return self.model.encode_pts(pts, geometry=geometry, features=features)
         self.model.train()
         try:
-            return self.model.encode_pts(pts, geometry=geometry)
+            return self.model.encode_pts(pts, geometry=geometry, features=features)
         finally:
             self.model.eval()
 
@@ -264,18 +306,18 @@ class PoseAgent:
 
         return energy_fn
 
-    def _score_fn_and_center(self, pts, pts_center, geometry, repeat: int):
+    def _score_fn_and_center(self, pts, pts_center, geometry, repeat: int, features=None):
         """Encode the cloud (eval mode) and close score_fn over it for
         ``repeat`` hypotheses a cloud; the centers repeated alike."""
-        feat = self._encode(pts, train=False, geometry=geometry)
+        feat = self._encode(pts, train=False, geometry=geometry, features=features)
         return (self._head_score_fn(feat, repeat=repeat),
                 pts_center.repeat_interleave(repeat, dim=0))
 
-    def _energies(self, pts, pts_center, pose_samples, t_input, geometry):
+    def _energies(self, pts, pts_center, pose_samples, t_input, geometry, features=None):
         """Energies [bs, K, 2] of camera-frame candidates [bs, K, pose_dim]
         at times t_input [bs * K, 1] (eval mode)."""
         bs, K, _ = pose_samples.shape
-        feat = self._encode(pts, train=False, geometry=geometry)
+        feat = self._encode(pts, train=False, geometry=geometry, features=features)
         centered = torch.cat([pose_samples[..., :-3],
                               pose_samples[..., -3:] - pts_center[:, None, :]], dim=-1)
         energy_fn = self._head_energy_fn(feat, repeat=K)
@@ -330,9 +372,12 @@ class PoseAgent:
     def train_step(self, batch, generator: Optional[torch.Generator] = None,
                    noise: Optional[Noise] = None) -> Dict[str, torch.Tensor]:
         """One optimization step of denoising score matching.  ``noise``:
-        (t [repeat, bs, 1], z [repeat, bs, pose_dim]), else drawn from ``generator``."""
+        (t [repeat, bs, 1], z [repeat, bs, pose_dim]), else drawn from ``generator``.
+        Leaves the batch's lifted image features in it as ``features``."""
+        features = self._features(batch, keep=True)
+
         def loss_fn():
-            feat = self._encode(batch["zero_mean_pts"], train=True)
+            feat = self._encode(batch["zero_mean_pts"], train=True, features=features)
             loss = self._gf_loss(feat, batch["zero_mean_gt_pose"], generator, noise)
             return loss, loss.detach()
 
@@ -343,8 +388,9 @@ class PoseAgent:
     def ema_loss(self, batch, generator: Optional[torch.Generator] = None,
                  noise: Optional[Noise] = None) -> torch.Tensor:
         """The DSM loss under the EMA weights, for monitoring (``posenet_agent.py:200-224``)."""
+        features = self._features(batch)
         with self.ema_weights():
-            feat = self._encode(batch["zero_mean_pts"], train=False)
+            feat = self._encode(batch["zero_mean_pts"], train=False, features=features)
             return self._gf_loss(feat, batch["zero_mean_gt_pose"], generator, noise,
                                  create_graph=False)
 
@@ -356,9 +402,10 @@ class PoseAgent:
         if teacher is self:
             raise ValueError("the teacher must be another agent")
         pts = batch["zero_mean_pts"]
+        features = self._features(batch, keep=True)     # the teacher's too: one frozen tower
         with teacher.ema_weights():
             with torch.no_grad():
-                t_feat = teacher._encode(pts, train=False)
+                t_feat = teacher._encode(pts, train=False, features=teacher._features(batch))
             t_score = teacher._head_score_fn(t_feat, tile=self.cfg.repeat_num)
 
             def teacher_fn(pose, t):
@@ -366,7 +413,7 @@ class PoseAgent:
                     return t_score(pose, t).detach()
 
             def loss_fn():
-                feat = self._encode(pts, train=True)
+                feat = self._encode(pts, train=True, features=features)
                 loss = self._gf_loss(feat, batch["zero_mean_gt_pose"], generator, noise,
                                      teacher_score_fn=teacher_fn)
                 return loss, loss.detach()
@@ -417,9 +464,11 @@ class PoseAgent:
                     lambda n: torch.randint(1, 10, (n, 1), generator=generator,
                                             device=pose_samples.device), bs)
             t_samples = (t_int.to(pose_samples.dtype) / 1e5).repeat_interleave(K, dim=0)
+        features = self._features(batch)
 
         def loss_fn():
-            feat = self._encode(batch["zero_mean_pts"], train=True, geometry=geometry)
+            feat = self._encode(batch["zero_mean_pts"], train=True, geometry=geometry,
+                                features=features)
             dsm = self._gf_loss(feat, batch["zero_mean_gt_pose"], generator, noise)
             energy = self._head_energy_fn(feat, repeat=K)(centered, t_samples)
             rank = ranking_loss(sort_results(energy.reshape(bs, K, 2), metrics))
@@ -476,7 +525,8 @@ class PoseAgent:
             if return_geometry and geometry is None:
                 geometry = self.pts_geometry(pts)
             res = self._sample_eager(batch, generator, repeat_num, sampler, num_steps, T0,
-                                     init_x, geometry, return_process, noise, latents)
+                                     init_x, geometry, return_process, noise, latents,
+                                     self._features(batch))
         if return_process:
             process, res = res
             process = process.reshape(bs, repeat_num, process.shape[1], -1)
@@ -487,11 +537,11 @@ class PoseAgent:
         return out if len(out) > 1 else res
 
     def _sample_eager(self, batch, generator, repeat_num, sampler, num_steps, T0, init_x,
-                      geometry, return_process, noise, latents):
+                      geometry, return_process, noise, latents, features):
         pts = batch["zero_mean_pts"]
         rows = pts.shape[0] * repeat_num
         with self.ema_weights():
-            feat = self._encode(pts, train=False, geometry=geometry)
+            feat = self._encode(pts, train=False, geometry=geometry, features=features)
             center_rep = batch["pts_center"].repeat_interleave(repeat_num, dim=0)
             init_rep = None if init_x is None else init_x.repeat_interleave(repeat_num, dim=0)
             kw = dict(init_x=init_rep, pts_center=center_rep, generator=generator,
@@ -542,7 +592,7 @@ class PoseAgent:
         if frozen is not None:
             return frozen.get_energy(batch, pose_samples, t_input, geometry)
         return self._energies(batch["zero_mean_pts"], batch["pts_center"], pose_samples,
-                              t_input, geometry)
+                              t_input, geometry, self._features(batch))
 
     # ------------------------------------------------------------------
     # likelihood (ref posenet.py:133-147)
@@ -557,8 +607,9 @@ class PoseAgent:
         frozen = self.frozen_programs()
         if frozen is not None:
             return frozen.likelihood(batch, poses, num_steps)
+        features = self._features(batch)
         with self.ema_weights():
-            feat = self._encode(batch["zero_mean_pts"], train=False)
+            feat = self._encode(batch["zero_mean_pts"], train=False, features=features)
             score_fn = self._head_score_fn(feat, create_graph=True)
             return ode_likelihood(score_fn, poses, self.sde, self.cfg.pose_mode,
                                   num_steps=num_steps)

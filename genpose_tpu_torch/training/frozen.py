@@ -37,7 +37,10 @@ memory pool) and replayed after:
 Outside the graphs, eagerly: the PointNet++ geometry (the FPS and ball-query
 wrappers count their launches per Python call in their ``launches``, which
 ``utils/trace.py::snapshot`` reads with ``dispatches`` and
-``frozen.captures``); every draw of the sampler,
+``frozen.captures``); under ``dinov2_pointnet2`` the frozen copy's image
+tower and the lifting of its features (or the batch's ``features``, which
+a serving request puts there once for both nets), which enter the programs
+as a static input as the geometry does; every draw of the sampler,
 made from the caller's generator by the helpers the eager samplers call
 (``prior_rows``, ``pc_start``, ``pc_draws``, ``edm_draws``), so that a frozen
 call consumes the generator as an eager call does, and copied into the
@@ -243,8 +246,10 @@ class FrozenPrograms:
         bs, dev = pts.shape[0], pts.device
         rows, pose_mode, sde = bs * K, agent.cfg.pose_mode, agent.sde
         shape = (rows, get_pose_dim(pose_mode))
+        twin = self.sample_twin
         if geometry is None:
             geometry = agent.pts_geometry(pts)
+        features = twin._features(batch)
         init_rep = None if init_x is None else init_x.repeat_interleave(K, dim=0)
         # the draws, in the order the eager sampler makes them
         T = sde.T if T0 is None else T0
@@ -259,19 +264,18 @@ class FrozenPrograms:
             starts = (x0, tuple(noise))
         else:
             starts = (prior_rows(sde, rows, pose_mode, T, generator, dev, init_rep),)
-        twin = self.sample_twin
         # under a group of several ranks the samplers' norms reduce over
         # every rank's rows, which no graph may hold
         group = parallel.active()
         grouped = group is not None and group.world > 1
 
-        def build(pts, center, geometry, *starts):
+        def build(pts, center, geometry, features, *starts):
             def encoded():
                 if sampler == "edm":
-                    feat = twin._encode(pts, train=False, geometry=geometry)
+                    feat = twin._encode(pts, train=False, geometry=geometry, features=features)
                     return (twin._head_denoise_fn(feat, repeat=K),
                             center.repeat_interleave(K, dim=0))
-                return twin._score_fn_and_center(pts, center, geometry, K)
+                return twin._score_fn_and_center(pts, center, geometry, K, features)
 
             if sampler == "ode_adaptive":
                 rk = RK45(sde, pose_mode, T, rows, dev)
@@ -324,7 +328,7 @@ class FrozenPrograms:
         capture = not (sampler == "pc" and grouped)
         key = ("sample", bs, K, pts.shape[1], sampler, num_steps, T, init_x is not None,
                return_process, noise is not None, latents is not None, grouped)
-        out = self._run(key, (pts, center, geometry, *starts), build, capture)
+        out = self._run(key, (pts, center, geometry, features, *starts), build, capture)
         if return_process:
             return out, geometry
         return out.reshape(bs, K, -1), geometry
@@ -336,7 +340,7 @@ class FrozenPrograms:
         global dispatches
         twin = self.sample_twin
         dispatches += 1
-        feat = twin._encode(batch["zero_mean_pts"], train=False)
+        feat = twin._encode(batch["zero_mean_pts"], train=False, features=twin._features(batch))
         return ode_likelihood(twin._head_score_fn(feat, create_graph=True), poses, twin.sde,
                               twin.cfg.pose_mode, num_steps=num_steps)
 
@@ -347,10 +351,12 @@ class FrozenPrograms:
         if geometry is None:
             geometry = self.agent.pts_geometry(pts)
         twin = self.energy_twin
+        features = twin._features(batch)
 
         def build(*static):
             return [lambda: twin._energies(*static)], lambda seg: seg()
 
         bs, K, _ = pose_samples.shape
         return self._run(("energy", bs, K, pts.shape[1]),
-                         (pts, batch["pts_center"], pose_samples, t_input, geometry), build)
+                         (pts, batch["pts_center"], pose_samples, t_input, geometry, features),
+                         build)

@@ -23,15 +23,17 @@ device=...)`` is the decorator form: it tests the flag at each call, and
 ``device`` is a function of the call's arguments giving the device.
 
 Spans sit at layer boundaries only (a request, its copies, the geometry,
-the sampler, the energies, a frozen program's replay or capture, the
-ranking and pooling, a batch's preparation, a training step, the
-optimizer): never inside a function a CUDA graph captures, a sampler's
+the image tower and the lifting of its features, the sampler, the
+energies, a frozen program's replay or capture, the ranking and pooling, a
+batch's preparation, a training step, the optimizer): never inside a function a CUDA graph captures, a sampler's
 step loop or per-kernel code.
 
 Counters count whether tracing is on or off.  ``count(name)`` keeps the
 counters of this module (``frozen.captures``: programs captured into CUDA
 graphs; ``score_head.fused`` / ``score_head.plain``: ``PoseScoreNet.score_from``
-calls by path, eager or at capture, so a graph's replays add nothing);
+calls by path, eager or at capture, so a graph's replays add nothing;
+``image_tower.crops`` / ``feature_lift.points``: crops through the image
+tower and points given its features, ``PoseAgent.image_features``);
 ``snapshot()`` adds, as they stand, the module counters the port
 kept before: ``training/frozen.py::dispatches`` and the ``launches`` of
 ``ops/{fps,ball_query,fps_bq_fused}_cuda.py``.
@@ -66,7 +68,8 @@ _clock: Tuple[int, int] = (0, 0)
 _records: List["_Span"] = []
 _ids = itertools.count(1)
 _local = threading.local()
-_counts: Dict[str, int] = {"frozen.captures": 0, "score_head.fused": 0, "score_head.plain": 0}
+_counts: Dict[str, int] = {"frozen.captures": 0, "score_head.fused": 0, "score_head.plain": 0,
+                           "image_tower.crops": 0, "feature_lift.points": 0}
 
 
 class _Null:

@@ -171,7 +171,8 @@ def init_params_(model: nn.Module, seed: int) -> nn.Module:
     - tail first layers (``PerPointTail``'s conv1 too): normal, std
       1/sqrt(concatenated fan-in);
     - fusion tail outputs: zero, as the reference zero-initialises them;
-    - a PointNet spatial transformer's last layer: zero (the identity).
+    - a PointNet spatial transformer's last layer: zero (the identity);
+    - the frozen image tower's buffers: ``ImageTower.reset_``.
     """
     from genpose_tpu_torch.models.layers import (
         FusedTails,
@@ -180,6 +181,7 @@ def init_params_(model: nn.Module, seed: int) -> nn.Module:
         SplitTail,
     )
     from genpose_tpu_torch.models.pointnet import STNkd
+    from genpose_tpu_torch.models.vit import ImageTower
 
     g = torch.Generator().manual_seed(seed)
 
@@ -206,6 +208,8 @@ def init_params_(model: nn.Module, seed: int) -> nn.Module:
             for k in (m.feat_kernel, m.t_kernel, m.pose_kernel):
                 normal_(k, 1.0 / math.sqrt(fan_in))
             m.bias1.zero_()
+        elif isinstance(m, ImageTower):
+            m.reset_(g)
     # after the Linear pass above, so the zeros stick
     for m in model.modules():
         if isinstance(m, SplitTail):
