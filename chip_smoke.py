@@ -230,6 +230,16 @@ non-zero and prints no result line):
    benchmark's ``genpose_light.eval_b256`` cell (its harness, weights and
    clouds from SCORE_HEAD_SEED) and its ``pose_gap`` against
    ``portbench/reference``, under the cell's limit.
+23. the eval-mode grouped SA stage kernel (``csrc/sa_stage.cu`` through
+   ``ops/sa_stage_cuda.py``), run after phase 22: ``-Xptxas -v``'s
+   registers and spills of each instantiation (none may spill); each light
+   stage 0-2 radius at 256 clouds against the plain chain (largest gap
+   over the largest output, SA_STAGE_TOL), two calls bit for bit; each
+   radius's device ms by ``torch.profiler`` and ms by CUDA events over
+   SA_STAGE_CALLS calls beside its float32 bound and the plain chain's ms;
+   one encoder pass (stages 0-3) fused and plain; then one request of the
+   ``genpose_light.eval_b256`` cell (weights and clouds from SA_STAGE_SEED)
+   and its ``pose_gap`` / ``energy_gap`` under the cell's limits.
 
 Checkpoints and metrics of phase 7, the trees and results of phases 9-12,
 the converted checkpoints of phase 14, the tree and results of phase 15 and
@@ -237,7 +247,7 @@ the trained pair of phase 21 go under ``build/chip_smoke/`` in the
 checkout.  The last lines are the training numbers, the evaluation and
 tracking numbers, the frozen arms, the bfloat16 arms, the checkpoint and
 sampler numbers, the training CLI's numbers, phase 16's, 17's, 18's, 19's,
-20's, 21's and 22's numbers, the card line, one JSON line describing each
+20's, 21's, 22's and 23's numbers, the card line, one JSON line describing each
 kernel, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -245,6 +255,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import io
 import json
 import os
@@ -273,6 +284,9 @@ EVAL_T0, TRACK_T0 = 0.55, 0.15  # scripts/eval_single.sh, scripts/eval_tracking.
 SCORE_HEAD_CALLS = 200  # phase 22: back-to-back score evaluations a timing
 SCORE_HEAD_TOL = 1e-5  # phase 22: kernel against plain, over the largest |output|
 SCORE_HEAD_SEED = 3000000037  # phase 22: the eval cell's weights and request
+SA_STAGE_CALLS = 20  # phase 23: back-to-back calls of each radius a timing
+SA_STAGE_TOL = 1e-5  # phase 23: kernel against plain, over the largest |output|
+SA_STAGE_SEED = 3000000041  # phase 23: the eval cell's weights and request
 
 
 @contextlib.contextmanager
@@ -3834,9 +3848,10 @@ def convergence(dev, card):
     return out
 
 
-def score_head_ptxas():
-    """Registers and spill bytes of ``csrc/score_head.cu``'s kernels, from
-    one ``nvcc -Xptxas -v`` compile of the file with the build's flags."""
+def ptxas(source: str, name_of):
+    """Registers and spill bytes of each kernel of ``csrc/<source>``, from one
+    ``nvcc -Xptxas -v`` compile of the file with the build's flags;
+    ``name_of`` maps a mangled entry name to a readable one (None: skip)."""
     import re
     import subprocess
     import tempfile
@@ -3845,17 +3860,14 @@ def score_head_ptxas():
 
     with tempfile.TemporaryDirectory() as tmp:
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
-               str(_build.CSRC_DIR / "score_head.cu"), "-o", str(Path(tmp) / "score_head.o")]
+               str(_build.CSRC_DIR / source), "-o", str(Path(tmp) / "kernel.o")]
         log = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                              check=True).stdout
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            fn = m.group(1)
-            name = ("score_head_prep" if "score_head_prep" in fn else
-                    f"score_head_kernel<{3 if 'ILi3E' in fn else 0}>" if "score_head_kernel" in fn
-                    else None)
+            name = name_of(m.group(1))
             continue
         if name is None:
             continue
@@ -3866,6 +3878,42 @@ def score_head_ptxas():
         if m:
             out.setdefault(name, {})["registers"] = int(m.group(1))
     return out
+
+
+def score_head_ptxas():
+    """Registers and spill bytes of ``csrc/score_head.cu``'s kernels."""
+    return ptxas("score_head.cu", lambda fn: (
+        "score_head_prep" if "score_head_prep" in fn else
+        f"score_head_kernel<{3 if 'ILi3E' in fn else 0}>" if "score_head_kernel" in fn
+        else None))
+
+
+def sa_stage_ptxas():
+    """Registers and spill bytes of each instantiation of
+    ``csrc/sa_stage.cu``, named by its (NS, G, C, N0, N1, N2, THREADS)."""
+    import re
+
+    def name_of(fn):
+        if "sa_stage_kernel" not in fn:
+            return None
+        return "sa_stage_kernel<" + ",".join(re.findall(r"Li(\d+)E", fn)) + ">"
+
+    return ptxas("sa_stage.cu", name_of)
+
+
+def events_ms(fn, calls: int) -> float:
+    """Milliseconds a call by CUDA events around ``calls`` back-to-back calls
+    after a warm one, without autograd."""
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def eval_cell_pose_gap(dev, seed: int):
@@ -3918,25 +3966,13 @@ def score_head_path(dev, card):
         raise AssertionError(f"score head kernel: gap {gap} (limit {SCORE_HEAD_TOL}), "
                              f"two calls equal {torch.equal(got, again)}")
 
-    def events_ms(fn):
-        with torch.no_grad():
-            fn()
-            torch.cuda.synchronize()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(SCORE_HEAD_CALLS):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-        return start.elapsed_time(end) / SCORE_HEAD_CALLS
-
     def kernels():
         with torch.no_grad():
             sh.score_head(net.trunk, fp, x, t, std)
 
-    kernel_ms = events_ms(kernels)
-    score_from_ms = events_ms(lambda: net.score_from(fp, x, t))
-    plain_ms = events_ms(lambda: sh.score_head_ref(net.trunk, fp, x, t, std))
+    kernel_ms = events_ms(kernels, SCORE_HEAD_CALLS)
+    score_from_ms = events_ms(lambda: net.score_from(fp, x, t), SCORE_HEAD_CALLS)
+    plain_ms = events_ms(lambda: sh.score_head_ref(net.trunk, fp, x, t, std), SCORE_HEAD_CALLS)
     head_dev_ms = device_ms(kernels, 50, "score_head_kernel")
     prep_dev_ms = device_ms(kernels, 50, "score_head_prep")
     T, H, O = net.trunk.tails.num_tails, net.trunk.tails.hidden, net.trunk.tails.out_dim
@@ -3965,6 +4001,92 @@ def score_head_path(dev, card):
     return out
 
 
+def sa_stage_path(dev, card):
+    """Phase 23: the eval-mode grouped SA stage kernel at the serving shape
+    (256 clouds of the light encoder): each stage 0-2 radius against the
+    plain chain, its device time beside its float32 bound, one encoder pass
+    fused and plain, registers and spills, and one request of the eval
+    cell through its harness."""
+    from genpose_tpu_torch.models.pointnet2 import Pointnet2ClsMSG, cls_msg_geometry
+    from genpose_tpu_torch.ops import sa_stage_cuda as sk
+    from genpose_tpu_torch.utils.weights import perturb_
+
+    regs = sa_stage_ptxas()
+    enc = perturb_(Pointnet2ClsMSG("light"), seed=23, scale=0.05)
+    enc = enc.to(dev).eval().requires_grad_(False)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    clouds = 256
+    pts = object_clouds(gen, clouds, N_POINTS, dev)
+    geoms = cls_msg_geometry(pts, "light")
+    rows, feats = [], None
+    for k in range(3):
+        sa, g = getattr(enc, f"sa_{k}"), geoms[k]
+        outs = []
+        for i in range(sa.n_scales):
+            mlp, gx, gi = getattr(sa, f"mlp_{i}"), g["grouped_xyz"][i], g["gidx"][i]
+            Bc, M, S = gi.shape
+            ws = sk.widths(mlp)
+            out = torch.empty(Bc, M, ws[-1], device=dev)
+            kern = functools.partial(sk.sa_stage, mlp, gx, feats, gi, out, 0)
+            plain = functools.partial(sk.sa_stage_ref, mlp, gx, feats, gi)
+            with torch.no_grad():
+                kern()
+                want = plain()
+                again = out.clone()
+                kern()
+            torch.cuda.synchronize()
+            gap = float((again - want).abs().max() / want.abs().max())
+            if gap > SA_STAGE_TOL or not torch.equal(out, again):
+                raise AssertionError(f"sa stage {k} radius {i}: gap {gap} (limit "
+                                     f"{SA_STAGE_TOL}), two calls equal {torch.equal(out, again)}")
+            c_in = 3 + (0 if feats is None else feats.shape[-1])
+            macs = Bc * M * S * (c_in * ws[0] + ws[0] * ws[1] + ws[1] * ws[2])
+            weights = c_in * ws[0] + ws[0] * ws[1] + ws[1] * ws[2] + 4 * sum(ws)
+            n_bytes = 4 * (Bc * M * S * 4 + (0 if feats is None else feats.numel())
+                           + Bc * M * ws[-1] + weights)
+            bnd, by = bound_ms(n_bytes, 2 * macs)
+            rows.append(row(f"stage {k} radius {i} ({S} x {c_in} -> {ws})",
+                            events_ms(kern, SA_STAGE_CALLS), events_ms(plain, SA_STAGE_CALLS),
+                            n_bytes, 2 * macs, gap=gap,
+                            device_ms=device_ms(kern, SA_STAGE_CALLS, "sa_stage_kernel")))
+            outs.append(want)
+        feats = torch.cat(outs, dim=-1)
+    dev_total = None if any(r["device_ms"] is None for r in rows) else sum(
+        r["device_ms"] for r in rows)
+    bound_total = sum(r["bound_ms"] for r in rows)
+
+    def encoder(grad: bool):  # grad enabled (no parameter needs it): the plain stages
+        with torch.set_grad_enabled(grad):
+            return enc(pts, geometry=geoms)
+
+    with torch.no_grad():
+        fused_feat = encoder(False)
+        plain_feat = encoder(True)
+    enc_gap = float((fused_feat - plain_feat).abs().max() / plain_feat.abs().max())
+    pass_ms = {"fused": events_ms(lambda: encoder(False), SA_STAGE_CALLS),
+               "plain": events_ms(lambda: encoder(True), SA_STAGE_CALLS)}
+    numbers, limits = eval_cell_pose_gap(dev, SA_STAGE_SEED)
+    if not numbers.get("pose_gap", float("inf")) <= limits["pose_gap"]:
+        raise AssertionError(f"eval cell request: {numbers} against {limits}")
+    spills = {n: r.get("spill_bytes", 0) for n, r in regs.items()}
+    out = {"clouds": clouds, "radii": rows, "stages_device_ms": dev_total,
+           "stages_bound_ms": bound_total, "encoder_pass_ms": pass_ms, "encoder_gap": enc_gap,
+           "ptxas": regs, "eval_cell": {"seed": SA_STAGE_SEED, **numbers, "limits": limits}}
+    for r in rows:
+        print(f"phase 23 {r['shape']}: device {_ms(r['device_ms'])}, events {r['ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
+              f"gap {r['gap']:.3e}", flush=True)
+    print(f"phase 23 sa stage kernel ({clouds} clouds): stages 0-2 device {_ms(dev_total)} "
+          f"against a {bound_total:.4f} ms float32 bound; one encoder pass (stages 0-3) "
+          f"{pass_ms['fused']:.4f} ms fused, {pass_ms['plain']:.4f} ms plain (gap "
+          f"{enc_gap:.3e}); ptxas {regs}; spills {spills}; eval cell request pose_gap "
+          f"{numbers['pose_gap']:.3e} (limit {limits['pose_gap']}), energy_gap "
+          f"{numbers.get('energy_gap')}; {card}", flush=True)
+    if any(spills.values()):
+        raise AssertionError(f"sa stage kernel spills registers: {spills}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3989,6 +4111,8 @@ def main() -> int:
         print(json.dumps(row), flush=True)
     fused_launches, chain_times, fused_profiled = fused_geometry_path(dev, card)
     phase22 = score_head_path(dev, card)
+    torch.cuda.empty_cache()
+    phase23 = sa_stage_path(dev, card)
     torch.cuda.empty_cache()
 
     rng = np.random.default_rng(0)
@@ -4182,6 +4306,7 @@ def main() -> int:
     print(json.dumps({"host_helper": phase20}), flush=True)
     print(json.dumps({"convergence": phase21}), flush=True)
     print(json.dumps({"score_head": phase22}), flush=True)
+    print(json.dumps({"sa_stage": phase23}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

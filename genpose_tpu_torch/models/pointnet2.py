@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from genpose_tpu_torch.models.layers import Dense, SharedMLP, dropout
+from genpose_tpu_torch.ops import sa_stage_cuda
 from genpose_tpu_torch.ops.pointcloud import (
     ball_query_msg,
     farthest_point_sample,
@@ -42,6 +43,7 @@ from genpose_tpu_torch.ops.pointcloud import (
     three_interpolate,
     three_nn,
 )
+from genpose_tpu_torch.utils import trace
 
 # Segmentation-style config (reference pointnet2.py:18-30).
 MSG_CFG: Dict[str, Any] = {
@@ -156,6 +158,32 @@ def cls_msg_geometry(pointcloud: torch.Tensor, config: str = "light",
     return geoms
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    return x.is_cuda
+
+
+def fused_sa_applies(stage: "PointnetSAModuleMSG", geometry, features) -> bool:
+    """Whether a stage's radii take the eval-mode kernel: a grouped stage
+    (not GroupAll) whose grouped coordinates and input features are float32
+    on the card, whose SharedMLPs compute in float32 with every BatchNorm in
+    eval mode, no autograd graph to record, and an instantiation of the
+    kernel for each radius' (nsample, input features, widths)."""
+    if stage.npoint is None or torch.is_grad_enabled():
+        return False
+    c = 0
+    if features is not None:
+        if not _on_card(features) or features.dtype != torch.float32:
+            return False
+        c = features.shape[-1]
+    for i in range(stage.n_scales):
+        mlp, g = getattr(stage, f"mlp_{i}"), geometry["grouped_xyz"][i]
+        if (not _on_card(g) or g.dtype != torch.float32 or mlp.dtype != torch.float32
+                or any(getattr(mlp, f"bn_{j}").training for j in range(mlp.n_layers))
+                or not sa_stage_cuda.has_instantiation(stage.nsamples[i], c, mlp)):
+            return False
+    return True
+
+
 class PointnetSAModuleMSG(nn.Module):
     """Multi-scale-grouping set abstraction (ref ``pointnet2_modules.py:10-93``).
 
@@ -181,6 +209,11 @@ class PointnetSAModuleMSG(nn.Module):
         if geometry is None:
             geometry = sa_geometry(xyz, self.npoint, self.radii, self.nsamples,
                                    dtype=self.geometry_dtype)
+        if fused_sa_applies(self, geometry, features):
+            trace.count("sa_stage.fused", self.n_scales)
+            return geometry["new_xyz"], self._fused(geometry, features)
+        if self.npoint is not None:
+            trace.count("sa_stage.plain", self.n_scales)
         outs = []
         for i in range(self.n_scales):
             grouped_xyz = geometry["grouped_xyz"][i]
@@ -193,6 +226,21 @@ class PointnetSAModuleMSG(nn.Module):
             h = getattr(self, f"mlp_{i}")(g)  # its first Dense casts g to the stage dtype
             outs.append(torch.amax(h, dim=2))  # max-pool over the sample axis
         return geometry["new_xyz"], torch.cat(outs, dim=-1)
+
+    def _fused(self, geometry, features):
+        """Each radius by the kernel into its columns of the stage's output."""
+        mlps = [getattr(self, f"mlp_{i}") for i in range(self.n_scales)]
+        gidx = [gi.contiguous() for gi in geometry["gidx"]]
+        B, M = gidx[0].shape[:2]
+        out = torch.empty((B, M, sum(sa_stage_cuda.widths(m)[-1] for m in mlps)),
+                          dtype=torch.float32, device=gidx[0].device)
+        feats = None if features is None else features.contiguous()
+        col = 0
+        for i, mlp in enumerate(mlps):
+            sa_stage_cuda.sa_stage(mlp, geometry["grouped_xyz"][i].contiguous(), feats, gidx[i],
+                                   out, col)
+            col += sa_stage_cuda.widths(mlp)[-1]
+        return out
 
 
 class PointnetFPModule(nn.Module):

@@ -4,7 +4,8 @@ Every ``genpose_tpu_torch/csrc/*.cu`` is compiled by its own ``nvcc``
 process, all started together, and linked into one shared library with a
 plain C interface under ``build/genpose_tpu_torch/``.  The library is loaded
 with ``ctypes``; the wrappers (``ops/fps_cuda.py``, ``ops/ball_query_cuda.py``,
-``ops/fps_bq_fused_cuda.py``, ``ops/score_head_cuda.py``) pass raw device
+``ops/fps_bq_fused_cuda.py``, ``ops/score_head_cuda.py``,
+``ops/sa_stage_cuda.py``) pass raw device
 pointers and the current CUDA stream as ``c_void_p``.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper), ``-O3``, and
@@ -114,6 +115,10 @@ def library() -> ctypes.CDLL:
     lib.gp_score_head.restype = i
     lib.gp_score_head_shape.argtypes = [i, i, i, i, p]
     lib.gp_score_head_shape.restype = i
+    lib.gp_sa_stage.argtypes = [p] * 5 + [f, p, p] + [i] * 10 + [p]
+    lib.gp_sa_stage.restype = i
+    lib.gp_sa_stage_scratch.argtypes = [i] * 5
+    lib.gp_sa_stage_scratch.restype = i
     lib.gp_error_string.argtypes = [i]
     lib.gp_error_string.restype = ctypes.c_char_p
     return lib

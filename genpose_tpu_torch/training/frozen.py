@@ -165,24 +165,28 @@ class _Program:
     def __init__(self, static, fns: List[Callable], drive: Callable):
         self.static, self.drive = static, drive
         self.segments = [_Segment(fn) for fn in fns]
-        self.fused_evals = 0
+        self.fused_evals = self.fused_sa = 0
 
     def capture(self, pool, stream) -> None:
         """Warm every segment up once on ``stream`` (libraries initialised,
         workspaces allocated; the span ``frozen.warmup``), then capture each
         in the pool.  ``fused_evals``: the score evaluations the captured
-        graphs run through the fused head kernel, i.e. one replay's."""
+        graphs run through the fused head kernel, i.e. one replay's;
+        ``fused_sa``: the grouped SA radii they run through the SA stage
+        kernel."""
         with trace.span("frozen.warmup"):
             stream.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(stream):
                 for seg in self.segments:
                     seg.fn()
             torch.cuda.synchronize()
-        before = trace.snapshot()["score_head.fused"]
+        before = trace.snapshot()
         for seg in self.segments:
             seg.capture(pool, stream)
         torch.cuda.synchronize()
-        self.fused_evals = trace.snapshot()["score_head.fused"] - before
+        after = trace.snapshot()
+        self.fused_evals = after["score_head.fused"] - before["score_head.fused"]
+        self.fused_sa = after["sa_stage.fused"] - before["sa_stage.fused"]
 
     def __call__(self):
         return self.drive(*self.segments)
@@ -226,6 +230,7 @@ class FrozenPrograms:
                     prog.capture(self.pool, self.stream)
                     if sp is not None:
                         sp.attrs["fused_evals"] = prog.fused_evals
+                        sp.attrs["fused_sa"] = prog.fused_sa
         else:
             _copy_into(prog.static, inputs)
         dispatches += 1

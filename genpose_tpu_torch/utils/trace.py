@@ -32,6 +32,9 @@ Counters count whether tracing is on or off.  ``count(name)`` keeps the
 counters of this module (``frozen.captures``: programs captured into CUDA
 graphs; ``score_head.fused`` / ``score_head.plain``: ``PoseScoreNet.score_from``
 calls by path, eager or at capture, so a graph's replays add nothing;
+``sa_stage.fused`` / ``sa_stage.plain``: the radii of grouped PointNet++ SA
+stages by path (``models/pointnet2.py::fused_sa_applies``), counted the same
+way;
 ``image_tower.crops`` / ``feature_lift.points``: crops through the image
 tower and points given its features, ``PoseAgent.image_features``);
 ``snapshot()`` adds, as they stand, the module counters the port
@@ -69,7 +72,8 @@ _records: List["_Span"] = []
 _ids = itertools.count(1)
 _local = threading.local()
 _counts: Dict[str, int] = {"frozen.captures": 0, "score_head.fused": 0, "score_head.plain": 0,
-                           "image_tower.crops": 0, "feature_lift.points": 0}
+                           "sa_stage.fused": 0, "sa_stage.plain": 0, "image_tower.crops": 0,
+                           "feature_lift.points": 0}
 
 
 class _Null:

@@ -22,7 +22,8 @@ def csrc(tmp_path, monkeypatch):
     return copy
 
 
-@pytest.mark.parametrize("name", ["fps_round.cuh", "fps.cu", "fps_bq_fused.cu", "score_head.cu"])
+@pytest.mark.parametrize("name", ["fps_round.cuh", "fps.cu", "fps_bq_fused.cu", "score_head.cu",
+                                  "sa_stage.cu"])
 def test_an_edit_renames_the_library(csrc, name):
     before = _build.library_path()
     assert before == _build.library_path()  # the name is a function of the files
